@@ -1,31 +1,57 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (fwumious_wabbit_tpu_torch) on one
-CUDA card: the quickest proof that the port builds and serves on the GPU.
+CUDA card: the quickest proof that the port builds, serves and trains on the
+GPU.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each raising on failure (exit code 1, and no result line):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels from csrc/ with nvcc (sm_90a);
+2. build the CUDA kernels from csrc/ with nvcc (sm_90a), one nvcc per
+   source, all started together;
 3. the FFM triangle kernel against its plain PyTorch version on the card,
    at the serving shape and at tests/test_pallas_ffm.py's shapes, inputs
    with both padding forms; tolerance max|kernel−plain| ≤ 1e-5·(1+max|plain|)
    in f32 with TF32 off; then both versions timed with CUDA events;
-4. the serving path at full width — the LR+FFM k=8 configuration of
+4. the FFM backward kernel against torch autograd of the plain version, at
+   the same shapes plus the training shape and a model whose contra tensor
+   needs more than 48 KB of shared memory (F=40, k=8); same tolerance;
+   both timed at the training shape (B=1024);
+5. the sparse AdaGrad update kernel against the plain version
+   (ops/adagrad.apply_rows_plain) on the card: LUT, flex and SGD; power_t
+   0, 0.5 and 0.25; uniform and duplicate-heavy ids; empty stretches between
+   occupied rows; padding ids = R; and one full-width case (the LR table's
+   262,144 rows, 15,360 Zipf-drawn ids); then at the inputs the train step
+   gives it: one full-width B=1024 step's LR and FFM (rid, grows) on clones
+   of the model's own tables; acc within rtol 1e-5, atol 1e-6 (at the
+   step's shapes also within 1e-4 relative), w within atol 1e-6 plus rtol
+   1e-5 of the magnitudes summed into it (update_agrees); both timed at the
+   Zipf case and at the step's two shapes (the kernel table's ms and
+   plain_ms are per step, LR + FFM);
+6. the serving path at full width — the LR+FFM k=8 configuration of
    fwumious_wabbit_tpu_torch/synthetic.py (-b 25, --ffm_bit_precision 25,
    keep A..L, --interactions AB, fields A and B) over its 10k-line synthetic
    dataset, random weights from a seed, written with the port's save_model:
    the daemon (the port's CLI, on a thread of this process) answers 64
    request/response lines, a further 1000 timed ones, a 4096-line pipelined
    burst, then hot-swaps a second model (hogwild_load) and answers again;
-5. ``-t -i`` predict through the CLI over the 10k-line file.
+   then ``-t -i`` predict through the CLI over the 10k-line file. Every
+   reply and prediction must equal the port's plain path — ``-t -i``
+   through the same CLI with ``--fwt_platform cpu``, from the same model
+   file — within 2e-6;
+7. training at full width through the CLI: the same configuration with its
+   AdaGrad state (``synthetic.training_config``: AdagradLUT, power_t 0, the
+   batch-mean cap), the 10k-line file at ``--fwt_batch_size 1024`` (10
+   steps), with ``-p`` and ``-f --save_resume``, on the card and again with
+   ``--fwt_platform cpu``: the predictions within 1e-5 per line, the four
+   tables of the two model files within 1e-5·(1+max|cpu|);
+8. a layer breakdown of the serving path and of one full-width train step.
 
-Every reply and prediction must equal the port's plain path — ``-t -i``
-through the same CLI with ``--fwt_platform cpu``, from the same model file —
-within 2e-6. The kernel's launch counter is reset right before phase 4 and
-must have grown by the end of phase 5. The script
-prints the kernel table as JSON, the card's name and power limit, and last
+Each main path (6 and 7) runs with the kernels' launch counters set to 0
+just before it and read just after: the FFM forward must have launched in
+both, the FFM backward and the sparse update in training. The script prints
+the kernel table as JSON, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. It needs one card and no network.
 """
 
@@ -43,6 +69,11 @@ ROOT = Path(__file__).resolve().parent
 SEED = 20261016
 KERNEL_SHAPES = [(2, 8, 8, 256), (4, 4, 6, 8), (16, 8, 12, 16), (3, 2, 5, 4)]
 REPLY_ATOL = 2e-6  # tests/test_serving.py:176
+# the FFM backward's shapes: the forward's, the training shape, and a model
+# whose contra tensor needs more than 48 KB of shared memory
+BWD_SHAPES = KERNEL_SHAPES + [(2, 8, 8, 1024), (40, 8, 48, 8)]
+TRAIN_BATCH = 1024
+TRAIN_ATOL = 1e-5  # card vs CPU: f32 sums in other orders (PERF.md)
 
 
 class SmokeError(RuntimeError):
@@ -119,6 +150,153 @@ def kernel_phase(device) -> dict:
                 lambda: ffm.ffm_triangle_reference(emb, vals, fields, F, k)))
     return {"max_abs_err": max_err, "ms": min(ms), "plain_ms": min(plain_ms),
             "shape": (F, k, N, B)}
+
+
+def bwd_phase(device) -> dict:
+    """The FFM backward kernel against torch autograd of the plain forward."""
+    import numpy as np
+    import torch
+
+    from fwumious_wabbit_tpu_torch.ops import ffm
+
+    max_err = 0.0
+    for F, k, N, B in BWD_SHAPES:
+        emb, vals, fields = kernel_inputs(F, k, N, B, device)
+        rng = np.random.default_rng(SEED + B)
+        g = torch.from_numpy(rng.normal(size=(B, F * (F + 1) // 2))
+                             .astype(np.float32)).to(device)
+        got = ffm.ffm_triangle_bwd(g, emb, vals, fields, F, k)
+        torch.cuda.synchronize()
+        ref = ffm.ffm_triangle_bwd_reference(g, emb, vals, fields, F, k)
+        err = (got - ref).abs().max().item()
+        bound = 1e-5 * (1.0 + ref.abs().max().item())
+        pad = (fields < 0) | (vals == 0)
+        print(f"kernel ffm_triangle_bwd F={F} k={k} N={N} B={B}: "
+              f"max_abs_err={err!r} (bound {bound!r})", flush=True)
+        check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+              f"backward output malformed at {(F, k, N, B)}")
+        check(err <= bound, f"backward kernel disagrees with plain at "
+                            f"{(F, k, N, B)}: {err} > {bound}")
+        check(int(torch.count_nonzero(got[pad])) == 0,
+              f"backward kernel moves padded positions at {(F, k, N, B)}")
+        max_err = max(max_err, err)
+    F, k, N, B = 2, 8, 8, TRAIN_BATCH
+    emb, vals, fields = kernel_inputs(F, k, N, B, device)
+    g = torch.ones((B, F * (F + 1) // 2), device=device)
+    ms, plain_ms = [], []
+    for order in ("plain", "kernel", "kernel", "plain"):
+        if order == "kernel":
+            ms.append(time_ms(lambda: ffm.ffm_triangle_bwd(g, emb, vals, fields, F, k)))
+        else:
+            plain_ms.append(time_ms(lambda: ffm.ffm_triangle_bwd_reference(
+                g, emb, vals, fields, F, k), reps=500))
+    return {"max_abs_err": max_err, "ms": min(ms), "plain_ms": min(plain_ms),
+            "shape": (F, k, N, B)}
+
+
+def update_case(R, K, seed, device, dup_heavy=False, pad=0, zipf=False):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + seed)
+    if zipf:
+        rid = (rng.zipf(1.3, K) - 1) % R
+    else:
+        rid = rng.integers(0, 8 if dup_heavy else R, K)
+    rid = rid.astype(np.int32)
+    rid[K - pad:] = R  # padding ids
+    g = (rng.normal(size=(K, 128)) * 0.1).astype(np.float32)
+    w = rng.normal(size=(R, 128)).astype(np.float32)
+    acc = rng.uniform(0, 2, size=(R, 128)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (w, acc, rid, g))
+
+
+def update_agrees(w0, acc0, rid, g, kernel, plain, kind, *rate_args) -> tuple:
+    """``(ok, max_abs_err, n)`` of the kernel's ``(w, acc)`` against the plain
+    version's, both updated from ``(w0, acc0)``. acc: rtol 1e-5, atol 1e-6
+    (its terms g² are all positive, so the sum is as well conditioned as
+    acc itself). w: atol 1e-6 plus rtol 1e-5 of the magnitudes summed into
+    the weight, |w0| + rate·Σ|g|: a long run's update can cancel w to near 0,
+    and then both f32 sums, taken in other orders, keep an error of the
+    order of their terms, not of the result. Where nothing cancels this is
+    rtol 1e-5 of |w|; a dropped or doubled term still exceeds it. ``n``
+    counts the weights that only this wider bound admits."""
+    import torch
+
+    from fwumious_wabbit_tpu_torch.ops import adagrad
+
+    (w1, a1), (w2, a2) = kernel, plain
+    mass = torch.zeros_like(w0)  # −rate·Σ|g| per weight: the plain update of |g|
+    adagrad.apply_rows_plain(mass, None if acc0 is None else acc0.clone(), rid,
+                             g.abs(), kind, *rate_args)
+    ok = bool(((w1 - w2).abs() <= 1e-6 + 1e-5 * (w0.abs() + mass.abs())).all())
+    n = int((~torch.isclose(w1, w2, rtol=1e-5, atol=1e-6)).sum())
+    err = (w1 - w2).abs().max().item()
+    if a1 is not None:
+        ok = ok and bool(torch.isclose(a1, a2, rtol=1e-5, atol=1e-6).all())
+        err = max(err, (a1 - a2).abs().max().item())
+    return ok, err, n
+
+
+def update_phase(device) -> dict:
+    """The sparse update kernel against ops/adagrad.apply_rows_plain on
+    the card, on copies of the same tables."""
+    import torch
+
+    from fwumious_wabbit_tpu_torch.ops import adagrad, sparse_update
+
+    kinds = {"lut": adagrad.OPT_ADAGRAD_LUT, "flex": adagrad.OPT_ADAGRAD_FLEX,
+             "sgd": adagrad.OPT_SGD}
+    full = {"R": 262144, "K": TRAIN_BATCH * 15, "seed": 2, "zipf": True}
+    cases = []  # (what, kind, power_t, update_case arguments or None)
+    for name, kind in kinds.items():
+        for power_t in (0.0, 0.5, 0.25):
+            for dup in (False, True):
+                cases.append((f"{name} p={power_t} dup_heavy={dup} pad=5",
+                              kind, power_t, {"R": 512, "K": 300, "seed": 1,
+                                              "dup_heavy": dup, "pad": 5}))
+    cases.append(("lut p=0.5 runs with empty stretches between them",
+                  adagrad.OPT_ADAGRAD_LUT, 0.5, None))
+    cases.append(("full width: lut p=0 R=262144 K=15360 zipf",
+                  adagrad.OPT_ADAGRAD_LUT, 0.0, full))
+    max_err = 0.0
+    for what, kind, power_t, args in cases:
+        if args is None:
+            w, acc, _, _ = update_case(4096, 1, 3, device)
+            rid = torch.tensor([0] * 333 + [3 * 1024 + 5] * 77 + [4096] * 3,
+                               dtype=torch.int32, device=device)
+            g = update_case(1, len(rid), 4, device)[3]
+        else:
+            w, acc, rid, g = update_case(device=device, **args)
+        has_acc = kind != adagrad.OPT_SGD
+        w1, a1 = w.clone(), acc.clone() if has_acc else None
+        sparse_update.sparse_adagrad_update(w1, a1, rid, g, 0.1, power_t, 0.5, kind)
+        torch.cuda.synchronize()
+        w2, a2 = w.clone(), acc.clone() if has_acc else None
+        adagrad.apply_rows_plain(w2, a2, rid, g, kind, 0.1, power_t, 0.5)
+        ok, err, n = update_agrees(w, acc if has_acc else None, rid, g, (w1, a1),
+                                   (w2, a2), kind, 0.1, power_t, 0.5)
+        if args is None:
+            untouched = torch.ones(w.shape[0], dtype=torch.bool, device=device)
+            untouched[[0, 3 * 1024 + 5]] = False
+            ok = ok and torch.equal(w1[untouched], w[untouched])
+        print(f"kernel sparse_adagrad_update {what}: max_abs_err={err!r} "
+              f"(rtol 1e-5, atol 1e-6; {n} weights of cancelled sums within "
+              f"rtol 1e-5 of their terms)", flush=True)
+        check(ok, f"sparse update kernel disagrees with plain: {what}")
+        max_err = max(max_err, err)
+    w, acc, rid, g = update_case(device=device, **full)
+    lut = adagrad.OPT_ADAGRAD_LUT
+    ms, plain_ms = [], []
+    for order in ("plain", "kernel", "kernel", "plain"):
+        if order == "kernel":
+            ms.append(time_ms(lambda: sparse_update.sparse_adagrad_update(
+                w, acc, rid, g, 0.1, 0.0, 1.0, lut), reps=500))
+        else:
+            plain_ms.append(time_ms(lambda: adagrad.apply_rows_plain(
+                w, acc, rid, g, lut, 0.1, 0.0, 1.0), reps=200))
+    return {"max_abs_err": max_err, "ms": min(ms), "plain_ms": min(plain_ms),
+            "unique_rows": int(torch.unique(rid).numel())}
 
 
 # -- phase 4/5: the serving path ----------------------------------------------------
@@ -358,6 +536,292 @@ def layer_breakdown(path: Path, lines: list[bytes], device) -> dict:
     return t
 
 
+# -- phase 7: training at full width --------------------------------------------------
+
+
+class ElapsedLog:
+    """Captures the CLI's ``Elapsed: … (N ex/s)`` log record."""
+
+    def __init__(self):
+        import logging
+
+        self.records: list[str] = []
+        self.logger = logging.getLogger("fwumious_wabbit_tpu_torch.train.loop")
+        self.handler = logging.Handler()
+        self.handler.emit = lambda r: self.records.append(r.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+    def ex_per_s(self) -> float:
+        import re
+
+        for msg in reversed(self.records):
+            m = re.search(r"Elapsed: .*\((\d+) ex/s\)", msg)
+            if m:
+                return float(m.group(1))
+        raise SmokeError("the CLI logged no Elapsed line")
+
+
+def train_cli(data: Path, tag: str, extra=()) -> tuple:
+    """One training run through the port's CLI: (predictions, model path,
+    ex/s from the CLI's log)."""
+    import numpy as np
+
+    from fwumious_wabbit_tpu_torch import synthetic
+    from fwumious_wabbit_tpu_torch.train.loop import main
+
+    out = data.with_name(f"chip_smoke_train_{tag}.out")
+    fwt = data.with_name(f"chip_smoke_train_{tag}.fwt")
+    argv = synthetic.serving_argv() + [
+        "--data", str(data), "--fwt_batch_size", str(TRAIN_BATCH),
+        "-p", str(out), "-f", str(fwt), "--save_resume", *extra]
+    with ElapsedLog() as el:
+        rc = main(argv)
+    check(rc == 0, f"training ({tag}) exited {rc}")
+    return np.array([float(x) for x in out.read_text().split()]), fwt, el.ex_per_s()
+
+
+def logloss(preds, data: Path) -> float:
+    import numpy as np
+
+    y = np.array([float(line.split(b" ", 1)[0]) > 0
+                  for line in data.read_bytes().splitlines()])
+    p = np.clip(preds, 1e-7, 1 - 1e-7)
+    return float(-np.mean(np.where(y, np.log(p), np.log(1 - p))))
+
+
+def training_phase(data: Path) -> dict:
+    """Train on the card (counters read around it), then with
+    --fwt_platform cpu; compare predictions and the four tables."""
+    from fwumious_wabbit_tpu_torch.ops import ffm, sparse_update
+    from fwumious_wabbit_tpu_torch.persistence.model_file import load_model
+
+    ffm.LAUNCHES = ffm.BWD_LAUNCHES = sparse_update.LAUNCHES = 0
+    preds, fwt, ex_s = train_cli(data, "gpu")  # the main path
+    launches = {"ffm_triangle": ffm.LAUNCHES,
+                "ffm_triangle_bwd": ffm.BWD_LAUNCHES,
+                "sparse_adagrad_update": sparse_update.LAUNCHES}
+    print(f"kernel launches on the training path: {json.dumps(launches)}",
+          flush=True)
+    for name, n in launches.items():
+        check(n > 0, f"the training path never launched the {name} kernel")
+    cpu_preds, cpu_fwt, cpu_ex_s = train_cli(data, "cpu", ["--fwt_platform", "cpu"])
+    n_lines = len(data.read_bytes().splitlines())
+    check(preds.shape == cpu_preds.shape == (n_lines,),
+          f"training wrote {preds.shape} and {cpu_preds.shape} predictions "
+          f"for {n_lines} lines")
+    pred_err = float(abs(preds - cpu_preds).max())
+    print(f"training predictions: {n_lines} lines, max |card − CPU| = "
+          f"{pred_err!r} (bound {TRAIN_ATOL})", flush=True)
+    check(pred_err <= TRAIN_ATOL, f"training predictions differ: {pred_err}")
+    _, _, gpu_model = load_model(fwt, device="cpu")
+    _, _, cpu_model = load_model(cpu_fwt, device="cpu")
+    table_err = {}
+    for key in ("lr_w", "lr_acc", "ffm_w", "ffm_acc"):
+        a, b = getattr(gpu_model, key), getattr(cpu_model, key)
+        err = (a - b).abs().max().item()
+        bound = TRAIN_ATOL * (1.0 + b.abs().max().item())
+        table_err[key] = err
+        print(f"training table {key}: max |card − CPU| = {err!r} (bound "
+              f"{bound!r})", flush=True)
+        check(err <= bound, f"trained table {key} differs: {err} > {bound}")
+    ll = logloss(preds, data)
+    print(f"training progressive logloss over {n_lines} lines: card {ll!r}, "
+          f"CPU {logloss(cpu_preds, data)!r}", flush=True)
+    return {"launches": launches, "ex_s": ex_s, "cpu_ex_s": cpu_ex_s,
+            "pred_err": pred_err, "table_err": table_err, "logloss": ll}
+
+
+def train_batches(data: Path, device, n_b: int) -> tuple:
+    """``(model, host batches, host timings)``: a fresh full-width training
+    model on ``device`` (synthetic.training_config) and the first n_b
+    1024-line batches of ``data`` as the CLI makes them, host counts
+    included."""
+    from fwumious_wabbit_tpu_torch import synthetic
+    from fwumious_wabbit_tpu_torch.ingest import Batcher, FeatureTranslator, VowpalParser
+    from fwumious_wabbit_tpu_torch.models.model import FwModel
+    from fwumious_wabbit_tpu_torch.train import step as st
+    from fwumious_wabbit_tpu_torch.train.loop import np_counts
+
+    mi, vw = synthetic.training_config(data)
+    model = FwModel(mi)
+    model.load_params(model.init_params(device))
+    parser, ft, batcher = VowpalParser(vw), FeatureTranslator(mi), Batcher(TRAIN_BATCH)
+    lines = data.read_bytes().splitlines(True)[: TRAIN_BATCH * n_b]
+    shift = (model.ffm_spec.align - 1).bit_length()
+    t = {}
+    t0 = time.perf_counter()
+    tes = [ft.translate(parser.parse_line(line)) for line in lines]
+    t["parse_translate_us_per_line"] = (time.perf_counter() - t0) / len(lines) * 1e6
+    t0 = time.perf_counter()
+    hb = []
+    for i in range(0, len(tes), TRAIN_BATCH):
+        b = batcher.make_batch(tes[i:i + TRAIN_BATCH])
+        bd = st.train_batch_dict(b)
+        bd["lr_counts"] = np_counts(b.lr_ids, b.lr_vals, 0)
+        bd["ffm_counts"] = np_counts(b.ffm_ids, b.ffm_vals, shift)
+        hb.append(bd)
+    t["make_batch_and_counts_us"] = (time.perf_counter() - t0) / n_b * 1e6
+    return model, hb, t
+
+
+def step_update_phase(data: Path, device) -> dict:
+    """The sparse update kernel against apply_rows_plain at exactly the
+    inputs the train step gives it: after two full-width B=1024 steps, the
+    third step's LR and FFM ``(rid, grows)`` (lr_update_rows,
+    ffm_update_rows), applied to clones of the model's own tables. w and
+    acc within :func:`update_agrees`' bounds; acc besides within 1e-4 of plain
+    relative to each element (a sum of squares in another order), so a
+    wrong acc on small values cannot hide under the atol. Both versions
+    timed at those two shapes."""
+    import torch
+
+    from fwumious_wabbit_tpu_torch.ops import adagrad, sparse_update
+    from fwumious_wabbit_tpu_torch.train import step as st
+
+    model, hb, _ = train_batches(data, device, 3)
+    step = st.make_train_step(model)
+    for b in hb[:2]:
+        step(b)
+    bd = st.to_device(hb[2], st.TRAIN_KEYS, device)
+    leaves = st.gather(model, bd)
+    logit, _, dlogit = st.forward(model, bd, leaves)
+    grads = st.backward(logit, leaves, dlogit)
+    calls = {
+        "lr": (model.opt_lr, model.lr_w, model.lr_acc,
+               st.lr_update_rows(model, bd, grads[0])),
+        "ffm": (model.opt_ffm, model.ffm_w, model.ffm_acc,
+                st.ffm_update_rows(model, bd, grads[1])),
+    }
+    out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    for name, (opt, w, acc, (rid, grows, pre_scaled)) in calls.items():
+        check(pre_scaled and opt.kind == adagrad.OPT_ADAGRAD_LUT,
+              f"the {name} update is not the pre-scaled LUT update of the "
+              f"training configuration")
+        rid, grows = rid.to(torch.int32), grows.contiguous()
+        args = (opt.learning_rate, opt.power_t, opt.initial_acc_gradient, opt.kind)
+        w1, a1 = w.clone(), acc.clone()
+        sparse_update.sparse_adagrad_update(w1, a1, rid, grows, *args)
+        torch.cuda.synchronize()
+        w2, a2 = w.clone(), acc.clone()
+        adagrad.apply_rows_plain(w2, a2, rid, grows, opt.kind, *args[:3])
+        ok, _, n = update_agrees(w, acc, rid, grows, (w1, a1), (w2, a2),
+                                 opt.kind, *args[:3])
+        w_err = (w1 - w2).abs().max().item()
+        a_err = (a1 - a2).abs().max().item()
+        a_rel = ((a1 - a2).abs() / a2.abs()).nan_to_num(0.0).max().item()
+        touched = int(torch.unique(rid[rid < w.shape[0]]).numel())
+        changed = int((a2 != acc).any(dim=1).sum())
+        print(f"kernel sparse_adagrad_update at the train step's {name} "
+              f"shape R={w.shape[0]} K={rid.shape[0]} ({touched} distinct "
+              f"rows, {changed} with a non-zero gradient): max_abs_err w "
+              f"{w_err!r}, acc {a_err!r}; max relative err acc {a_rel!r} "
+              f"(rtol 1e-5, atol 1e-6; acc relative 1e-4; {n} weights of "
+              f"cancelled sums within rtol 1e-5 of their terms)", flush=True)
+        check(changed > 0, f"the {name} step update changes no row: the "
+                           f"check would show nothing")
+        ok = ok and bool(((a1 - a2).abs() <= 1e-4 * a2.abs()).all())
+        check(ok, f"sparse update kernel disagrees with plain at the train "
+                  f"step's {name} shape")
+        out["max_abs_err"] = max(out["max_abs_err"], w_err, a_err)
+        ms, plain_ms = [], []
+        for order in ("plain", "kernel", "kernel", "plain"):
+            if order == "kernel":
+                ms.append(time_ms(lambda: sparse_update.sparse_adagrad_update(
+                    w1, a1, rid, grows, *args), reps=500))
+            else:
+                plain_ms.append(time_ms(lambda: adagrad.apply_rows_plain(
+                    w2, a2, rid, grows, opt.kind, *args[:3]), reps=200))
+        out[f"{name}_ms"], out[f"{name}_plain_ms"] = min(ms), min(plain_ms)
+        out[f"{name}_K"] = rid.shape[0]
+        out["ms"] += min(ms)
+        out["plain_ms"] += min(plain_ms)
+        del w1, a1, w2, a2
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_breakdown(data: Path, device, n_b: int = 8) -> dict:
+    """One full-width train step's layers, timed one after another on n_b
+    batches of 1024 lines (host clock, the card synchronized after each
+    device layer), and the steps' device time by kernel from
+    torch.profiler."""
+    import torch
+
+    from fwumious_wabbit_tpu_torch.train import step as st
+
+    model, hb, t = train_batches(data, device, n_b)
+
+    stages = ("h2d", "gather", "forward", "backward", "count_scaling_and_dedup",
+              "update_lr", "update_ffm")
+    acc = dict.fromkeys(stages, 0.0)
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        acc[name] += time.perf_counter() - t0
+        return out
+
+    def layered(bd_host):
+        bd = timed("h2d", lambda: st.to_device(bd_host, st.TRAIN_KEYS, device))
+        leaves = timed("gather", lambda: st.gather(model, bd))
+        logit, p, dlogit = timed("forward", lambda: st.forward(model, bd, leaves))
+        grads = timed("backward", lambda: st.backward(logit, leaves, dlogit))
+        (lr_rid, lr_g, _), (ffm_rid, ffm_g, _) = timed(
+            "count_scaling_and_dedup",
+            lambda: (st.lr_update_rows(model, bd, grads[0]),
+                     st.ffm_update_rows(model, bd, grads[1])))
+        timed("update_lr", lambda: model.opt_lr.apply_rows(
+            model.lr_w, model.lr_acc, lr_rid, lr_g, pre_scaled=True))
+        timed("update_ffm", lambda: model.opt_ffm.apply_rows(
+            model.ffm_w, model.ffm_acc, ffm_rid, ffm_g, pre_scaled=True))
+        return p
+
+    step = st.make_train_step(model)
+    for b in hb[:2]:  # warm
+        step(b).cpu()
+    for b in hb:
+        layered(b)
+    for name in stages:
+        t[f"{name}_us"] = acc[name] / n_b * 1e6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in hb:
+        step(b)
+    torch.cuda.synchronize()
+    t["train_step_wall_us"] = (time.perf_counter() - t0) / n_b * 1e6
+
+    prof_rows = []
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for b in hb:
+            step(b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_total = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dt = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+        prof_rows.append((dt, e.key[:60], e.count))
+        dev_total += dt
+    prof_rows.sort(reverse=True)
+    t["profiled_wall_us_per_step"] = wall / n_b * 1e6
+    t["device_busy_us_per_step"] = dev_total / n_b
+    t["device_idle_share"] = 1.0 - dev_total / (wall * 1e6)
+    t["device_kernels"] = [(name, count, round(dt / n_b, 2))
+                           for dt, name, count in prof_rows[:12]]
+    return t
+
+
 def main() -> int:
     import torch
 
@@ -382,16 +846,21 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    build.load()
+    for src in build.sources():  # the first load builds every source at once
+        build.load(src.stem)
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {build.build_seconds:.2f} s)", flush=True)
+    print(f"  on {card}", flush=True)
     for line in build.build_log.splitlines():
         if "registers" in line or "smem" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
 
     kern = kernel_phase(device)
-
+    bwd = bwd_phase(device)
+    upd = update_phase(device)
     data = synthetic.ensure_dataset(ROOT / ".bench_cache" / "chip_smoke", 10_000)
+    step_upd = step_update_phase(data, device)
+
     mi, vw = synthetic.serving_config(data)
     paths = (data.with_name("chip_smoke_a.fwt"), data.with_name("chip_smoke_b.fwt"))
     for path, seed in zip(paths, (SEED, SEED + 1)):
@@ -407,11 +876,13 @@ def main() -> int:
     del probe
     torch.cuda.empty_cache()
 
-    ffm.LAUNCHES = 0  # the main path starts here
+    ffm.LAUNCHES = 0  # the serving path starts here
     srv = serving_phase(data, paths)
     launches = ffm.LAUNCHES
-    print(f"ffm_triangle kernel launches on the main path: {launches}", flush=True)
-    check(launches > 0, "the main path never launched the ffm_triangle kernel")
+    print(f"ffm_triangle kernel launches on the serving path: {launches}", flush=True)
+    check(launches > 0, "the serving path never launched the ffm_triangle kernel")
+
+    trn = training_phase(data)  # the training path; resets its counters
 
     F, k, N, B = kern["shape"]
     print(f"timing: ffm_triangle kernel {kern['ms'] * 1e3:.2f} us vs plain "
@@ -424,17 +895,58 @@ def main() -> int:
     print(f"timing: daemon pipelined burst {srv['burst_lines_s']:.0f} lines/s "
           f"(4096 lines)", flush=True)
     print(f"  on {card}", flush=True)
+    F, k, N, B = bwd["shape"]
+    print(f"timing: ffm_triangle_bwd kernel {bwd['ms'] * 1e3:.2f} us vs plain "
+          f"PyTorch autograd {bwd['plain_ms'] * 1e3:.2f} us per call at B={B} "
+          f"N={N} F={F} k={k}", flush=True)
+    print(f"  on {card}", flush=True)
+    print(f"timing: sparse_adagrad_update kernel (sort included) "
+          f"{upd['ms'] * 1e3:.2f} us vs plain index_add_ path "
+          f"{upd['plain_ms'] * 1e3:.2f} us per call at R=262144 "
+          f"K={TRAIN_BATCH * 15} Zipf ids ({upd['unique_rows']} distinct rows)",
+          flush=True)
+    print(f"  on {card}", flush=True)
+    print(f"timing: sparse_adagrad_update kernel (sort included) vs plain "
+          f"index_add_ path at the train step's shapes, B={TRAIN_BATCH}: LR "
+          f"(K={step_upd['lr_K']}) {step_upd['lr_ms'] * 1e3:.2f} us vs "
+          f"{step_upd['lr_plain_ms'] * 1e3:.2f} us, FFM "
+          f"(K={step_upd['ffm_K']}) {step_upd['ffm_ms'] * 1e3:.2f} us vs "
+          f"{step_upd['ffm_plain_ms'] * 1e3:.2f} us; per step "
+          f"{step_upd['ms'] * 1e3:.2f} us vs {step_upd['plain_ms'] * 1e3:.2f} us",
+          flush=True)
+    print(f"  on {card}", flush=True)
+    print(f"timing: training through the CLI at B={TRAIN_BATCH}, 10k lines: "
+          f"{trn['ex_s']:.0f} ex/s on the card, {trn['cpu_ex_s']:.0f} ex/s "
+          f"with --fwt_platform cpu (CLI log, parse and translate included)",
+          flush=True)
+    print(f"  on {card}", flush=True)
     layers = layer_breakdown(paths[0], data.read_bytes().splitlines(True), device)
     print("timing: layers per 256-line batch: " + json.dumps(layers), flush=True)
     print(f"  on {card}", flush=True)
+    tlayers = train_breakdown(data, device)
+    print(f"timing: layers per {TRAIN_BATCH}-line train step: "
+          + json.dumps(tlayers), flush=True)
+    print(f"  on {card}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "ffm_triangle", "route": "cuda",
-        "source": "fwumious_wabbit_tpu_torch/csrc/ffm_triangle.cu",
-        "replaces": "fwumious_wabbit_tpu/ops/pallas/ffm.py:131",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"]}]}))
+    csrc = "fwumious_wabbit_tpu_torch/csrc/"
+    print(json.dumps({"kernels": [
+        {"name": "ffm_triangle", "route": "cuda", "source": csrc + "ffm_triangle.cu",
+         "replaces": "fwumious_wabbit_tpu/ops/pallas/ffm.py:131",
+         "launches": launches, "max_abs_err": kern["max_abs_err"],
+         "ms": kern["ms"], "plain_ms": kern["plain_ms"]},
+        {"name": "ffm_triangle_bwd", "route": "cuda",
+         "source": csrc + "ffm_triangle.cu",
+         "replaces": "jax.vjp of models/model.py:418-443",
+         "launches": trn["launches"]["ffm_triangle_bwd"],
+         "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
+         "plain_ms": bwd["plain_ms"]},
+        {"name": "sparse_adagrad_update", "route": "cuda",
+         "source": csrc + "sparse_update.cu",
+         "replaces": "fwumious_wabbit_tpu/ops/pallas/sparse_update.py:315",
+         "launches": trn["launches"]["sparse_adagrad_update"],
+         "max_abs_err": max(upd["max_abs_err"], step_upd["max_abs_err"]),
+         "ms": step_upd["ms"], "plain_ms": step_upd["plain_ms"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

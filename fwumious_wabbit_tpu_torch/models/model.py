@@ -11,9 +11,11 @@ model files and parameters carry across unchanged:
 * ``layers[i].w [in, out]``, ``layers[i].b [out]`` (plus ``w_acc``/``b_acc``)
   and ``final`` (the one-neuron readout) when a tower is configured.
 
-Training (init, the backward pass, the optimizer) is not ported yet. For the
-file layout the model needs only whether the optimizer keeps state, which
-is ``optimizer != SGD`` (fwumious_wabbit_tpu/ops/adagrad.py:166-167).
+Training a model without a tower is ported: the three scope optimizers
+(``opt_lr``, ``opt_ffm``, ``opt_nn``) with the batch-mean cap, and
+:meth:`FwModel.init_params`. The train step (train/step.py) updates the
+buffers in place. Training a tower (its init, backward and dense update)
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,7 +28,14 @@ from torch import nn
 from fwumious_wabbit_tpu.config.model_instance import ModelInstance, Optimizer
 
 from ..ops import tables
-from ..ops.ffm import ffm_triangle, triangle_indices
+from ..ops.adagrad import OPT_ADAGRAD_FLEX, OPT_ADAGRAD_LUT, OPT_SGD, ScopedOptimizer
+from ..ops.ffm import FfmTriangle, triangle_indices
+
+_OPT_KIND = {
+    Optimizer.SGD: OPT_SGD,
+    Optimizer.ADAGRAD_FLEX: OPT_ADAGRAD_FLEX,
+    Optimizer.ADAGRAD_LUT: OPT_ADAGRAD_LUT,
+}
 
 
 def predict_prob(logit: torch.Tensor) -> torch.Tensor:
@@ -100,9 +109,17 @@ class DenseLayer(nn.Module):
 class FwModel(nn.Module):
     """Static model structure plus its weights. Build it from a
     ``ModelInstance``, then :meth:`load_params` a params dict (JAX layout,
-    torch tensors — see convert.py and persistence/model_file.py)."""
+    torch tensors — see convert.py and persistence/model_file.py) or the
+    output of :meth:`init_params`.
 
-    def __init__(self, mi: ModelInstance):
+    ``batch_mean_mode`` (``--fwt_batch_mean``: off, on or auto) caps each
+    weight's per-batch multiplicity at ``batch_cap``
+    (ops/adagrad.batch_mean_grads); auto enables it for the AdaGrad scopes
+    whose power_t is 0, whose rate is a constant with no accumulator
+    feedback (fwumious_wabbit_tpu/models/model.py:236-251)."""
+
+    def __init__(self, mi: ModelInstance, batch_mean_mode: str = "auto",
+                 batch_cap: float = 8.0):
         super().__init__()
         self.mi = mi
         self.num_combos = mi.num_combos
@@ -121,8 +138,25 @@ class FwModel(nn.Module):
         self.topology = mi.nn_config.topology
         if self.topology not in ("one", "two", "four", "five"):
             raise ValueError(f'unknown nn topology: "{self.topology}"')
+        kind = _OPT_KIND[mi.optimizer]
+
+        def bm(power_t: float) -> bool:
+            if batch_mean_mode == "on":
+                return True
+            return (batch_mean_mode == "auto" and kind != OPT_SGD
+                    and float(power_t) == 0.0)
+
+        self.opt_lr = ScopedOptimizer(kind, mi.learning_rate, mi.power_t,
+                                      mi.init_acc_gradient,
+                                      batch_mean=bm(mi.power_t),
+                                      batch_cap=batch_cap)
+        self.opt_ffm = ScopedOptimizer(
+            kind, mi.ffm_learning_rate, mi.ffm_power_t, mi.ffm_init_acc_gradient,
+            batch_mean=bm(mi.ffm_power_t), batch_cap=batch_cap)
+        self.opt_nn = ScopedOptimizer(kind, mi.nn_learning_rate, mi.nn_power_t,
+                                      mi.nn_init_acc_gradient)
         # every scope shares the optimizer kind: state exists unless SGD
-        self.has_state = mi.optimizer != Optimizer.SGD
+        self.has_state = self.opt_lr.has_state
         self.tri_width = len(triangle_indices(self.num_fields)[0])
         # width of the vector entering the tower / terminal sum
         self.joined_width = self.num_combos + (self.tri_width if self.has_ffm else 0)
@@ -149,6 +183,38 @@ class FwModel(nn.Module):
             self.layers = nn.ModuleList(DenseLayer(l) for l in params["nn"])
             self.final = DenseLayer(params["final"])
         return self
+
+    def init_params(self, device=None) -> dict:
+        """Fresh weights (fwumious_wabbit_tpu/models/model.py:276-336, no
+        tower): LR weights 0, accumulators at ``initial_acc()``, FFM weights
+        from merand48 (ops/init.py), all on ``device``."""
+        from ..ops import init as ffm_init
+
+        if self.has_nn:
+            raise NotImplementedError(
+                "not yet ported: initializing a dense tower (--nn)")
+        mi = self.mi
+        rows = (self.lr_spec.num_rows, tables.LANE)
+        params = {"lr_w": torch.zeros(rows, dtype=torch.float32, device=device)}
+        if self.opt_lr.has_state:
+            params["lr_acc"] = torch.full(rows, self.opt_lr.initial_acc(),
+                                          dtype=torch.float32, device=device)
+        if self.has_ffm:
+            if mi.ffm_initialization_type != "default":
+                raise ValueError("Please select a valid activation function.")
+            n, padded = self.ffm_size, self.ffm_spec.padded_size
+            if mi.ffm_init_width == 0.0:
+                w = ffm_init.ffm_init_default(n, self.ffm_k, padded, device)
+            else:
+                w = ffm_init.ffm_init_band(n, padded, mi.ffm_init_width,
+                                           mi.ffm_init_zero_band,
+                                           mi.ffm_init_center, device)
+            rows = (self.ffm_spec.num_rows, tables.LANE)
+            params["ffm_w"] = w.reshape(rows)
+            if self.opt_ffm.has_state:
+                params["ffm_acc"] = torch.full(rows, self.opt_ffm.initial_acc(),
+                                               dtype=torch.float32, device=device)
+        return params
 
     def params(self) -> dict:
         """The weights as a params dict (the inverse of :meth:`load_params`)."""
@@ -181,8 +247,9 @@ class FwModel(nn.Module):
         return out.scatter_add_(1, torch.where(valid, combos, 0), contrib)
 
     def ffm_outputs(self, emb: torch.Tensor, batch: dict) -> torch.Tensor:
-        """[B, F(F+1)/2] interaction triangle through ops/ffm.ffm_triangle."""
-        return ffm_triangle(emb.contiguous(), batch["ffm_vals"].contiguous(),
+        """[B, F(F+1)/2] interaction triangle through ops/ffm.FfmTriangle
+        (the kernel pair on the card; the gradient flows to ``emb``)."""
+        return FfmTriangle.apply(emb.contiguous(), batch["ffm_vals"].contiguous(),
                             batch["ffm_fields"].to(torch.int32).contiguous(),
                             self.num_fields, self.ffm_k)
 

@@ -1,11 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
-Every ``*.cu`` file under ``fwumious_wabbit_tpu_torch/csrc/`` is compiled
-with ``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain
-C interface, loaded with ``ctypes``. The library is built on first use into
-``fwumious_wabbit_tpu_torch/build/`` (listed in ``.gitignore``) and named by
-a hash of its sources and flags, so an edited source is never served by a
-stale build. Only sources in this repository are compiled.
+Each ``*.cu`` file under ``fwumious_wabbit_tpu_torch/csrc/`` is compiled
+with ``nvcc`` for Hopper (``sm_90a``) into a shared library of its own with
+a plain C interface, loaded with ``ctypes``. A library is built on first use
+into ``fwumious_wabbit_tpu_torch/build/`` (listed in ``.gitignore``) and
+named by a hash of its source and the flags, so an edited source is never
+served by a stale build. The first :func:`load` of an unbuilt library
+starts one ``nvcc`` per unbuilt source, all at once. Only sources in this
+repository are compiled.
 """
 
 from __future__ import annotations
@@ -22,12 +24,23 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
+# no --use_fast_math: it would flush denormal accumulators to zero, which
+# the CPU path does not do
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v"]
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the C entry points of csrc/*.cu and their argument types
+_SIGNATURES = {
+    "fwt_ffm_triangle": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fwt_ffm_triangle_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fwt_sparse_adagrad_update": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                                  _F, _P],
+}
+
 _lock = threading.Lock()
-_lib = None
-build_log = ""  # nvcc's output of the last build (ptxas register report)
+_libs: dict[str, ctypes.CDLL] = {}
+build_log = ""  # nvcc's output of the builds so far (ptxas register report)
 build_seconds = 0.0  # wall time of the last build; 0.0 when it was cached
 
 
@@ -46,50 +59,66 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
-def _library_path() -> Path:
+def _library_path(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libfwt_kernels-{h.hexdigest()[:16]}.so"
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def _build(so: Path) -> None:
+def _build(srcs: list[Path]) -> None:
+    """Compile ``srcs``, one ``nvcc`` each, all started together."""
     global build_log, build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n"
-                           f"{r.stdout}{r.stderr}")
-    os.replace(tmp, so)
+    jobs = []
+    for src in srcs:
+        so = _library_path(src)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((proc, cmd, tmp, so))
+    failed = []
+    for proc, cmd, tmp, so in jobs:
+        out, _ = proc.communicate()
+        build_log += out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, so)
     build_seconds = time.perf_counter() - t0
-    build_log = r.stdout + r.stderr
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fwt_ffm_triangle.argtypes = [p, p, p, p, i, i, i, i, p]
-    lib.fwt_ffm_triangle.restype = i
-    lib.fwt_cuda_error_string.argtypes = [i]
+def _open(src: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_library_path(src)))
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _I
+    lib.fwt_cuda_error_string.argtypes = [_I]
     lib.fwt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use. Raises if it cannot be
+def load(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``. When it is not built yet, every
+    source without a library is built, in parallel. Raises if one cannot be
     built: there is no fallback."""
-    global _lib
     with _lock:
-        if _lib is None:
-            so = _library_path()
-            if not so.exists():
-                _build(so)
-            lib = ctypes.CDLL(str(so))
-            _bind(lib)
-            _lib = lib
-        return _lib
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        src = CSRC / f"{name}.cu"
+        if not src.exists():
+            raise FileNotFoundError(f"no kernel source {src}")
+        if not _library_path(src).exists():
+            _build([s for s in sources() if not _library_path(s).exists()])
+        lib = _libs[name] = _open(src)
+        return lib
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

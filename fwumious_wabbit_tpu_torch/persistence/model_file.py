@@ -131,7 +131,9 @@ def load_model(path: str | Path, immutable: bool = False, args=None,
                device=None):
     """Returns ``(mi, vw, model)`` with the weights on ``device`` (``None`` =
     the CUDA card). ``immutable=True`` skips the optimizer state and
-    converts the configuration to SGD (reference: src/persistence.rs:127-174)."""
+    converts the configuration to SGD (reference: src/persistence.rs:127-174).
+    ``args`` may override the learning hyperparameters and sets the
+    batch-mean cap (``--fwt_batch_mean``, ``--fwt_batch_cap``)."""
     device = resolve_device(device)
     with open(path, "rb") as fh:
         mi, vw = _read_header_fh(fh)
@@ -188,7 +190,11 @@ def load_model(path: str | Path, immutable: bool = False, args=None,
 
     if immutable:
         mi.optimizer = Optimizer.SGD
-    model = FwModel(mi).load_params(params)
+    model = FwModel(
+        mi,
+        batch_mean_mode=(getattr(args, "fwt_batch_mean", None) or "auto"),
+        batch_cap=float(getattr(args, "fwt_batch_cap", None) or 8.0),
+    ).load_params(params)
     return mi, vw, model
 
 

@@ -1,5 +1,6 @@
-"""A synthetic CTR dataset and the LR+FFM k=8 serving configuration at full
-width, for smoke tests and benchmarks of the port.
+"""A synthetic CTR dataset and the LR+FFM k=8 configuration at full width,
+for smoke tests and benchmarks of the port: served (weights only) or
+trained (with the flags' AdaGrad state).
 
 The dataset has the schema and distribution of the reference's benchmark
 generator (reference: benchmark/generate.py), and is byte for byte what
@@ -95,4 +96,13 @@ def serving_config(data: Path) -> tuple[ModelInstance, VwNamespaceMap]:
     vw = VwNamespaceMap.from_dataset_dir(str(data))
     mi = ModelInstance.from_cmdline(build_parser().parse_args(serving_argv()), vw)
     mi.optimizer = Optimizer.SGD
+    return mi, vw
+
+
+def training_config(data: Path) -> tuple[ModelInstance, VwNamespaceMap]:
+    """``(mi, vw)`` of the same configuration for training: the optimizer
+    as the flags give it (``--adaptive`` with fastmath: AdagradLUT, with
+    power_t 0 in both scopes)."""
+    vw = VwNamespaceMap.from_dataset_dir(str(data))
+    mi = ModelInstance.from_cmdline(build_parser().parse_args(serving_argv()), vw)
     return mi, vw

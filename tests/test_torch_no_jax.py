@@ -1,6 +1,8 @@
 """The port never imports jax: in a fresh interpreter where importing jax or
-jaxlib fails, every module of fwumious_wabbit_tpu_torch imports and a CPU
-predict runs from a model file the port itself writes."""
+jaxlib fails, every module of fwumious_wabbit_tpu_torch imports, a CPU
+predict runs from a model file the port itself writes, and a short CPU
+training through the CLI writes predictions and a model file with optimizer
+state."""
 
 import subprocess
 import sys
@@ -53,6 +55,18 @@ SCRIPT = textwrap.dedent("""
                  "-p", tmp + "/p.out", "--fwt_platform", "cpu"]) == 0
     preds = [float(x) for x in open(tmp + "/p.out").read().split()]
     assert len(preds) == 2 and all(0.0 < p < 1.0 for p in preds), preds
+    open(tmp + "/t.vw", "w").write("1 |A a |B b\\n-1 |A c |B d e\\n" * 4)
+    assert main(["--data", tmp + "/t.vw", "--keep", "A", "--keep", "B",
+                 "-b", "10", "--ffm_k", "4", "--ffm_bit_precision", "10",
+                 "--ffm_field", "A", "--ffm_field", "B", "--adaptive",
+                 "--power_t", "0", "--fwt_batch_size", "2", "-p",
+                 tmp + "/t.out", "-f", tmp + "/t.fwt", "--save_resume",
+                 "--fwt_platform", "cpu"]) == 0
+    preds = [float(x) for x in open(tmp + "/t.out").read().split()]
+    assert len(preds) == 8 and preds[6] > preds[0] + 0.1, preds  # it learns
+    from fwumious_wabbit_tpu_torch.persistence.model_file import load_model
+    _, _, trained = load_model(tmp + "/t.fwt", device="cpu")
+    assert trained.has_state and float(trained.lr_acc.abs().sum()) > 0
     assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
     print("imported", len(names), "modules")
 """)

@@ -1,0 +1,114 @@
+"""The port's train step (fwumious_wabbit_tpu_torch/train/step.py) against the
+JAX package's (fwumious_wabbit_tpu/train/step.py): 5-step trajectories from
+the same initial parameters on the same batches, comparing every step's
+predictions and, at the end, all four tables. Tolerance rtol 1e-5, atol
+1e-6: the same sums in other orders, and the port's f32 pow against XLA's."""
+
+import numpy as np
+import pytest
+import torch
+
+from fwumious_wabbit_tpu.config.model_instance import Optimizer
+from fwumious_wabbit_tpu.models.model import FwModel as JaxModel
+from fwumious_wabbit_tpu.train.loop import _batch_dict
+from fwumious_wabbit_tpu.train.step import make_train_step as jax_train_step
+from fwumious_wabbit_tpu_torch.convert import params_from_numpy
+from fwumious_wabbit_tpu_torch.models.model import FwModel
+from fwumious_wabbit_tpu_torch.train.loop import np_counts
+from fwumious_wabbit_tpu_torch.train.step import make_train_step
+
+from torch_parity import FFM_ARGV, batches, make_mi, make_vw, to_numpy, vw_lines
+
+TABLES = ("lr_w", "lr_acc", "ffm_w", "ffm_acc")
+
+# name → (extra flags, optimizer override, host batch-mean counts?)
+CONFIGS = {
+    "lut_p0_counts": (["--power_t", "0"], None, True),
+    "lut_p0_device_counts": (["--power_t", "0"], None, False),
+    "lut_p05": (["--power_t", "0.5"], None, False),
+    "flex": (["--power_t", "0.5"], Optimizer.ADAGRAD_FLEX, False),
+    "sgd": ([], Optimizer.SGD, False),
+}
+
+
+def build(tmp_path, name):
+    extra, optimizer, counts = CONFIGS[name]
+    vw = make_vw(tmp_path)
+    mi = make_mi(vw, FFM_ARGV + extra)
+    if optimizer is not None:
+        mi.optimizer = optimizer
+    return vw, mi, counts
+
+
+def with_counts(bd, batch, model):
+    """The loop's host multiplicity counts for the batch-mean scopes."""
+    if model.opt_lr.batch_mean:
+        bd["lr_counts"] = np_counts(batch.lr_ids, batch.lr_vals, 0)
+    if model.opt_ffm.batch_mean:
+        bd["ffm_counts"] = np_counts(batch.ffm_ids, batch.ffm_vals,
+                                     (model.ffm_spec.align - 1).bit_length())
+    return bd
+
+
+@pytest.mark.parametrize("batch_size", [1, 32])
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_trajectory_matches_jax(tmp_path, name, batch_size):
+    vw, mi, counts = build(tmp_path, name)
+    jmodel = JaxModel(mi)
+    jparams = jmodel.init_params()
+    model = FwModel(mi)
+    model.load_params(params_from_numpy(to_numpy(jparams), model, "cpu"))
+    assert model.opt_lr.batch_mean == jmodel.opt_lr.batch_mean
+    assert model.opt_ffm.batch_mean == jmodel.opt_ffm.batch_mean
+    jstep, step = jax_train_step(jmodel), make_train_step(model)
+    lines = vw_lines(5 * batch_size, seed=batch_size + len(name))
+    for batch in batches(vw, mi, lines, batch_size):
+        bd = _batch_dict(batch)
+        if counts:
+            bd = with_counts(bd, batch, model)
+        jparams, jp = jstep(jparams, dict(bd))
+        p = step(bd)
+        np.testing.assert_allclose(p.numpy(), np.asarray(jp), rtol=1e-5, atol=1e-6)
+    jparams = to_numpy(jparams)
+    params = model.params()
+    assert set(params) == set(jparams) == (
+        {"lr_w", "ffm_w"} if name == "sgd" else set(TABLES))
+    for key in params:
+        np.testing.assert_allclose(params[key].numpy(), jparams[key],
+                                   rtol=1e-5, atol=1e-6, err_msg=key)
+
+
+@pytest.mark.parametrize("name", ["lut_p0_counts", "flex", "sgd"])
+def test_init_params_match_jax(tmp_path, name):
+    _, mi, _ = build(tmp_path, name)
+    want = to_numpy(JaxModel(mi).init_params())
+    got = FwModel(mi).init_params("cpu")
+    assert set(got) == set(want)
+    for key, value in got.items():
+        np.testing.assert_array_equal(value.numpy(), want[key], err_msg=key)
+
+
+def test_step_updates_in_place_and_tables_never_require_grad(tmp_path):
+    vw, mi, _ = build(tmp_path, "lut_p05")
+    model = FwModel(mi)
+    model.load_params(model.init_params("cpu"))
+    tables = {k: getattr(model, k) for k in TABLES}
+    before = {k: t.clone() for k, t in tables.items()}
+    step = make_train_step(model)
+    (batch,) = batches(vw, mi, vw_lines(8, seed=1), 8)
+    p = step(_batch_dict(batch))
+    assert p.shape == (8,) and not p.requires_grad
+    for k, t in tables.items():
+        assert getattr(model, k) is t and not t.requires_grad
+        assert not torch.equal(t, before[k]), k
+
+
+def test_tower_training_is_refused(tmp_path):
+    vw = make_vw(tmp_path)
+    mi = make_mi(vw, FFM_ARGV + ["--nn_layers", "1", "--nn", "0:width:4"])
+    model = FwModel(mi)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        make_train_step(model)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        model.init_params("cpu")
+
