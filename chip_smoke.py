@@ -26,9 +26,15 @@ Phases, each raising on failure (exit code 1, and no result line):
    gives it: one full-width B=1024 step's LR and FFM (rid, grows) on clones
    of the model's own tables; acc within rtol 1e-5, atol 1e-6 (at the
    step's shapes also within 1e-4 relative), w within atol 1e-6 plus rtol
-   1e-5 of the magnitudes summed into it (update_agrees); both timed at the
-   Zipf case and at the step's two shapes (the kernel table's ms and
-   plain_ms are per step, LR + FFM);
+   1e-5 of the magnitudes summed into it (update_agrees); the kernel's tile
+   schedule: runs of T−1, T, T+1, 2T and 2T+1 positions at every offset of
+   a tile, and a 6,144-position run whose two runs must be bit-identical;
+   distinct ids, where LUT (power_t 0, 0.5, 0.25) and SGD must equal plain
+   bit for bit; the plain LUT rate on the card against build_lut's table
+   over all 2048 buckets, bit for bit; both versions timed at the Zipf case
+   and at the step's two shapes (wall per call from CUDA events, and the
+   device time of the update kernels and of the sort from torch.profiler;
+   the kernel table's ms and plain_ms are per step, LR + FFM);
 6. the serving path at full width — the LR+FFM k=8 configuration of
    fwumious_wabbit_tpu_torch/synthetic.py (-b 25, --ffm_bit_precision 25,
    keep A..L, --interactions AB, fields A and B) over its 10k-line synthetic
@@ -211,6 +217,23 @@ def update_case(R, K, seed, device, dup_heavy=False, pad=0, zipf=False):
     return tuple(torch.from_numpy(a).to(device) for a in (w, acc, rid, g))
 
 
+def run_both(w, acc, rid, g, kind, *rate_args) -> tuple:
+    """``((w, acc) of the kernel, (w, acc) of the plain version)``, each
+    updated in place from its own copy of ``(w, acc)``; ``rate_args`` are
+    lr, power_t and the initial acc gradient. acc is None for SGD."""
+    import torch
+
+    from fwumious_wabbit_tpu_torch.ops import adagrad, sparse_update
+
+    has_acc = kind != adagrad.OPT_SGD
+    w1, a1 = w.clone(), acc.clone() if has_acc else None
+    sparse_update.sparse_adagrad_update(w1, a1, rid, g, *rate_args, kind)
+    torch.cuda.synchronize()
+    w2, a2 = w.clone(), acc.clone() if has_acc else None
+    adagrad.apply_rows_plain(w2, a2, rid, g, kind, *rate_args)
+    return (w1, a1), (w2, a2)
+
+
 def update_agrees(w0, acc0, rid, g, kernel, plain, kind, *rate_args) -> tuple:
     """``(ok, max_abs_err, n)`` of the kernel's ``(w, acc)`` against the plain
     version's, both updated from ``(w0, acc0)``. acc: rtol 1e-5, atol 1e-6
@@ -268,35 +291,184 @@ def update_phase(device) -> dict:
             g = update_case(1, len(rid), 4, device)[3]
         else:
             w, acc, rid, g = update_case(device=device, **args)
-        has_acc = kind != adagrad.OPT_SGD
-        w1, a1 = w.clone(), acc.clone() if has_acc else None
-        sparse_update.sparse_adagrad_update(w1, a1, rid, g, 0.1, power_t, 0.5, kind)
-        torch.cuda.synchronize()
-        w2, a2 = w.clone(), acc.clone() if has_acc else None
-        adagrad.apply_rows_plain(w2, a2, rid, g, kind, 0.1, power_t, 0.5)
-        ok, err, n = update_agrees(w, acc if has_acc else None, rid, g, (w1, a1),
-                                   (w2, a2), kind, 0.1, power_t, 0.5)
+        kernel, plain = run_both(w, acc, rid, g, kind, 0.1, power_t, 0.5)
+        ok, err, n = update_agrees(w, None if kind == adagrad.OPT_SGD else acc,
+                                   rid, g, kernel, plain, kind, 0.1, power_t, 0.5)
         if args is None:
             untouched = torch.ones(w.shape[0], dtype=torch.bool, device=device)
             untouched[[0, 3 * 1024 + 5]] = False
-            ok = ok and torch.equal(w1[untouched], w[untouched])
+            ok = ok and torch.equal(kernel[0][untouched], w[untouched])
         print(f"kernel sparse_adagrad_update {what}: max_abs_err={err!r} "
               f"(rtol 1e-5, atol 1e-6; {n} weights of cancelled sums within "
               f"rtol 1e-5 of their terms)", flush=True)
         check(ok, f"sparse update kernel disagrees with plain: {what}")
         max_err = max(max_err, err)
+    max_err = max(max_err, schedule_cases(device))
+    distinct_id_cases(device)
+    lut_table_check(device)
     w, acc, rid, g = update_case(device=device, **full)
     lut = adagrad.OPT_ADAGRAD_LUT
+    call = lambda: sparse_update.sparse_adagrad_update(  # noqa: E731
+        w, acc, rid, g, 0.1, 0.0, 1.0, lut)
     ms, plain_ms = [], []
     for order in ("plain", "kernel", "kernel", "plain"):
         if order == "kernel":
-            ms.append(time_ms(lambda: sparse_update.sparse_adagrad_update(
-                w, acc, rid, g, 0.1, 0.0, 1.0, lut), reps=500))
+            ms.append(time_ms(call, reps=500))
         else:
             plain_ms.append(time_ms(lambda: adagrad.apply_rows_plain(
                 w, acc, rid, g, lut, 0.1, 0.0, 1.0), reps=200))
     return {"max_abs_err": max_err, "ms": min(ms), "plain_ms": min(plain_ms),
-            "unique_rows": int(torch.unique(rid).numel())}
+            "unique_rows": int(torch.unique(rid).numel()),
+            "device": update_device_us(call)}
+
+
+def schedule_cases(device) -> float:
+    """The kernel's tile schedule against plain: runs of T−1, T, T+1, 2T and
+    2T+1 positions starting at every offset of a tile (T =
+    sparse_update.TILE), ``off`` distinct ids sorting before the run (flex
+    rate); then a run of 6,144 of K = 8,192 positions with real gradients
+    (LUT rate), run twice, the two results bit-identical. Bounds of
+    :func:`update_agrees`."""
+    import numpy as np
+    import torch
+
+    from fwumious_wabbit_tpu_torch.ops import adagrad, sparse_update
+
+    # the flex rate: the LUT rate steps at each bucket edge, and a sum in
+    # another order lands acc one ulp across an edge about once in 10^6
+    # weights; these cases are of the sums (the 6,144-run is LUT)
+    T, flex, lut = sparse_update.TILE, adagrad.OPT_ADAGRAD_FLEX, adagrad.OPT_ADAGRAD_LUT
+    args = (0.1, 0.5, 0.5)
+    max_err = 0.0
+    for L in (T - 1, T, T + 1, 2 * T, 2 * T + 1):
+        worst = 0.0
+        for off in range(T):
+            rid = np.concatenate([np.arange(off), np.full(L, 500),
+                                  np.arange(1000, 1000 + T + 3)]).astype(np.int32)
+            rid = torch.from_numpy(np.random.default_rng(off).permutation(rid)).to(device)
+            w, acc, _, _ = update_case(1200, 1, 5 + off, device)
+            g = update_case(1, len(rid), 6 + off, device)[3]
+            ok, err, _ = update_agrees(w, acc, rid, g,
+                                       *run_both(w, acc, rid, g, flex, *args),
+                                       flex, *args)
+            check(ok, f"sparse update kernel disagrees with plain: a run of "
+                      f"{L} positions at offset {off} of a {T}-position tile")
+            worst = max(worst, err)
+        print(f"kernel sparse_adagrad_update: a run of {L} positions at each "
+              f"of the {T} offsets of a tile: max_abs_err={worst!r} (rtol "
+              f"1e-5, atol 1e-6)", flush=True)
+        max_err = max(max_err, worst)
+    rng = np.random.default_rng(SEED + 7)
+    rid = rng.integers(1, 32768, 8192).astype(np.int32)
+    rid[rng.permutation(8192)[:6144]] = 0
+    rid = torch.from_numpy(rid).to(device)
+    w, acc, _, g = update_case(32768, 8192, 8, device)
+    outs = []
+    for _ in range(2):
+        w1, a1 = w.clone(), acc.clone()
+        sparse_update.sparse_adagrad_update(w1, a1, rid, g, *args, lut)
+        outs.append((w1, a1))
+    w2, a2 = w.clone(), acc.clone()
+    adagrad.apply_rows_plain(w2, a2, rid, g, lut, *args)
+    ok, err, n = update_agrees(w, acc, rid, g, outs[0], (w2, a2), lut, *args)
+    same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(outs[0], outs[1]))
+    print(f"kernel sparse_adagrad_update: a 6,144-position run in K=8192: "
+          f"max_abs_err={err!r} (rtol 1e-5, atol 1e-6; {n} weights of "
+          f"cancelled sums within rtol 1e-5 of their terms); two runs "
+          f"bit-identical: {same}", flush=True)
+    check(ok, "sparse update kernel disagrees with plain on a 6,144-run")
+    check(same, "two runs of the sparse update kernel differ")
+    return max(max_err, err)
+
+
+def distinct_id_cases(device) -> None:
+    """Every id once (16,384 of 40,000 rows): the kernel equals
+    apply_rows_plain bit for bit, for LUT at power_t 0, 0.5 and 0.25 and
+    for SGD."""
+    import numpy as np
+    import torch
+
+    from fwumious_wabbit_tpu_torch.ops import adagrad
+
+    rid = torch.from_numpy(np.random.default_rng(SEED + 9).permutation(40000)[:16384]
+                           .astype(np.int32)).to(device)
+    w, acc, _, g = update_case(40000, 16384, 10, device)
+    for kind, power_t in ((adagrad.OPT_ADAGRAD_LUT, 0.0), (adagrad.OPT_ADAGRAD_LUT, 0.5),
+                          (adagrad.OPT_ADAGRAD_LUT, 0.25), (adagrad.OPT_SGD, 0.0)):
+        kernel, plain = run_both(w, acc, rid, g, kind, 0.1, power_t, 0.5)
+        differ = sum(int((x.view(torch.int32) != y.view(torch.int32)).sum())
+                     for x, y in zip(kernel, plain) if x is not None)
+        print(f"kernel sparse_adagrad_update, distinct ids, kind {kind} "
+              f"power_t {power_t}: {differ} weights differ from plain in any "
+              f"bit", flush=True)
+        check(differ == 0, f"the kernel is not plain bit for bit on distinct "
+                           f"ids (kind {kind}, power_t {power_t})")
+
+
+def lut_table_check(device) -> None:
+    """On the card, the plain lut_rate_compute equals build_lut's table
+    over all 2048 buckets (at each bucket's lower edge and middle), bit for
+    bit: the plain version and the kernel's table are one rate."""
+    import numpy as np
+    import torch
+
+    from fwumious_wabbit_tpu_torch.ops import adagrad
+
+    keys = np.arange(adagrad.FASTMATH_LR_LUT_SIZE, dtype=np.uint32) << np.uint32(20)
+    accs = np.concatenate([keys, keys | np.uint32(1 << 19)]).view(np.float32)
+    for lr, power_t, iag in ((0.1, 0.0, 1.0), (0.1, 0.5, 0.0), (0.1, 0.5, 0.5),
+                             (0.1, 0.25, 0.5), (0.5, 0.3, 0.5)):
+        got = adagrad.lut_rate_compute(torch.from_numpy(accs).to(device), lr,
+                                       power_t, iag).cpu().numpy()
+        want = adagrad.build_lut(lr, power_t, iag)[accs.view(np.uint32) >> 20]
+        differ = int((got.view(np.uint32) != want.view(np.uint32)).sum())
+        print(f"plain lut_rate_compute on the card vs build_lut, lr {lr} "
+              f"power_t {power_t} iag {iag}: {differ} of {len(accs)} differ",
+              flush=True)
+        check(differ == 0, "the plain LUT rate on the card is not the table")
+
+
+def update_device_us(call, reps: int = 20) -> dict:
+    """Device time per call of ``call`` (one sparse_adagrad_update) from
+    torch.profiler: the kernel's two passes, and the rest of what the
+    wrapper launches, which is the stable sort; and the sort's share of the
+    call's device time."""
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    pass1 = pass2 = sort = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dt = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+        if "tile_kernel" in e.key:
+            pass1 += dt
+        elif "crossing_kernel" in e.key:
+            pass2 += dt
+        else:
+            sort += dt
+    total = pass1 + pass2 + sort
+    check(pass1 > 0 and pass2 > 0, "the profiler saw no device time for the "
+                                   "sparse update kernels")
+    return {"device_us": total / reps, "kernel_us": (pass1 + pass2) / reps,
+            "pass1_us": pass1 / reps, "pass2_us": pass2 / reps,
+            "sort_us": sort / reps, "sort_share": sort / total}
+
+
+def update_timing_line(what: str, ms: float, plain_ms: float, dev: dict) -> str:
+    return (f"timing: sparse_adagrad_update {what}: kernel {ms * 1e3:.2f} us "
+            f"wall per call (sort included) vs plain index_add_ path "
+            f"{plain_ms * 1e3:.2f} us; device {dev['device_us']:.2f} us per "
+            f"call = update kernels {dev['kernel_us']:.2f} (pass 1 "
+            f"{dev['pass1_us']:.2f}, pass 2 {dev['pass2_us']:.2f}) + sort "
+            f"{dev['sort_us']:.2f} (sort share {dev['sort_share']:.3f})")
 
 
 # -- phase 4/5: the serving path ----------------------------------------------------
@@ -729,15 +901,17 @@ def step_update_phase(data: Path, device) -> dict:
         check(ok, f"sparse update kernel disagrees with plain at the train "
                   f"step's {name} shape")
         out["max_abs_err"] = max(out["max_abs_err"], w_err, a_err)
+        call = lambda: sparse_update.sparse_adagrad_update(  # noqa: E731
+            w1, a1, rid, grows, *args)
         ms, plain_ms = [], []
         for order in ("plain", "kernel", "kernel", "plain"):
             if order == "kernel":
-                ms.append(time_ms(lambda: sparse_update.sparse_adagrad_update(
-                    w1, a1, rid, grows, *args), reps=500))
+                ms.append(time_ms(call, reps=500))
             else:
                 plain_ms.append(time_ms(lambda: adagrad.apply_rows_plain(
                     w2, a2, rid, grows, opt.kind, *args[:3]), reps=200))
         out[f"{name}_ms"], out[f"{name}_plain_ms"] = min(ms), min(plain_ms)
+        out[f"{name}_device"] = update_device_us(call)
         out[f"{name}_K"] = rid.shape[0]
         out["ms"] += min(ms)
         out["plain_ms"] += min(plain_ms)
@@ -900,20 +1074,21 @@ def main() -> int:
           f"PyTorch autograd {bwd['plain_ms'] * 1e3:.2f} us per call at B={B} "
           f"N={N} F={F} k={k}", flush=True)
     print(f"  on {card}", flush=True)
-    print(f"timing: sparse_adagrad_update kernel (sort included) "
-          f"{upd['ms'] * 1e3:.2f} us vs plain index_add_ path "
-          f"{upd['plain_ms'] * 1e3:.2f} us per call at R=262144 "
-          f"K={TRAIN_BATCH * 15} Zipf ids ({upd['unique_rows']} distinct rows)",
-          flush=True)
+    print(update_timing_line(
+        f"at R=262144 K={TRAIN_BATCH * 15} Zipf ids ({upd['unique_rows']} "
+        f"distinct rows)", upd["ms"], upd["plain_ms"], upd["device"]),
+        flush=True)
     print(f"  on {card}", flush=True)
-    print(f"timing: sparse_adagrad_update kernel (sort included) vs plain "
-          f"index_add_ path at the train step's shapes, B={TRAIN_BATCH}: LR "
-          f"(K={step_upd['lr_K']}) {step_upd['lr_ms'] * 1e3:.2f} us vs "
-          f"{step_upd['lr_plain_ms'] * 1e3:.2f} us, FFM "
-          f"(K={step_upd['ffm_K']}) {step_upd['ffm_ms'] * 1e3:.2f} us vs "
-          f"{step_upd['ffm_plain_ms'] * 1e3:.2f} us; per step "
-          f"{step_upd['ms'] * 1e3:.2f} us vs {step_upd['plain_ms'] * 1e3:.2f} us",
-          flush=True)
+    for name in ("lr", "ffm"):
+        print(update_timing_line(
+            f"at the train step's {name.upper()} shape, B={TRAIN_BATCH} "
+            f"K={step_upd[name + '_K']}", step_upd[name + "_ms"],
+            step_upd[name + "_plain_ms"], step_upd[name + "_device"]),
+            flush=True)
+        print(f"  on {card}", flush=True)
+    print(f"timing: sparse_adagrad_update per train step (LR + FFM): kernel "
+          f"{step_upd['ms'] * 1e3:.2f} us vs plain "
+          f"{step_upd['plain_ms'] * 1e3:.2f} us", flush=True)
     print(f"  on {card}", flush=True)
     print(f"timing: training through the CLI at B={TRAIN_BATCH}, 10k lines: "
           f"{trn['ex_s']:.0f} ex/s on the card, {trn['cpu_ex_s']:.0f} ex/s "

@@ -27,6 +27,8 @@ either way, because both flush denormal bucket *edges* to zero.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -71,6 +73,18 @@ def build_lut(learning_rate: float, power_t: float,
                 val = np.float32(learning_rate)
             lut[x] = val
     return lut
+
+
+@functools.lru_cache(maxsize=None)
+def device_lut(learning_rate: float, power_t: float,
+               initial_acc_gradient: float,
+               device: torch.device) -> torch.Tensor:
+    """:func:`build_lut`'s table as a ``[2048]`` f32 tensor on ``device``:
+    the table the CUDA update kernel reads the LUT rate from, at
+    ``bits(acc) >> 20``. Built once per ``(lr, power_t, iag, device)``, not
+    once per step; callers share the tensor and must not write to it."""
+    return torch.from_numpy(
+        build_lut(learning_rate, power_t, initial_acc_gradient)).to(device)
 
 
 def _edge(key: torch.Tensor, initial_acc_gradient: float) -> torch.Tensor:

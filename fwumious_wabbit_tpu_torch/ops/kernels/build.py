@@ -34,8 +34,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fwt_ffm_triangle": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fwt_ffm_triangle_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "fwt_sparse_adagrad_update": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
-                                  _F, _P],
+    "fwt_sparse_adagrad_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _F, _F, _P],
 }
 
 _lock = threading.Lock()

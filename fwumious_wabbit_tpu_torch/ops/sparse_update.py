@@ -7,10 +7,13 @@ accumulator ``acc`` in place from K gradient rows: per weight
 has no ``acc``), the rate by the LUT or the flex rule of ops/adagrad.py.
 
 On a CUDA tensor it sorts the row ids (``torch.sort``, stable, as the JAX
-wrapper sorts outside its ``pallas_call``) and launches the hand-written
-kernel in ``csrc/sparse_update.cu``, which touches only the rows in
-``rid``; it raises on any failure, there is no fallback. On a CPU tensor it
-runs the plain version, ops/adagrad.apply_rows_plain.
+wrapper sorts outside its ``pallas_call``), allocates the kernel's scratch,
+takes the LUT from the device-table cache (ops/adagrad.device_lut) and
+launches the hand-written kernel in ``csrc/sparse_update.cu``: a segmented
+sum over tiles of :data:`TILE` sorted positions, in two launches, which
+touches only the rows in ``rid``. It raises on any failure; there is no
+fallback. On a CPU tensor it runs the plain version,
+ops/adagrad.apply_rows_plain.
 """
 
 from __future__ import annotations
@@ -25,6 +28,9 @@ from .kernels import build
 from .tables import LANE
 
 LAUNCHES = 0  # kernel launches made by sparse_adagrad_update (CUDA tensors only)
+# sorted positions per block of the kernel's first pass: kTile in
+# csrc/sparse_update.cu, which refuses any other value; it sizes the scratch
+TILE = 64
 _count_lock = threading.Lock()
 
 
@@ -54,6 +60,9 @@ def _check(w, acc, rid, grows, kind) -> None:
         raise ValueError("w, acc, rid and grows must be contiguous")
     if w.shape[0] >= 1 << 31:
         raise ValueError("the table has more rows than an int32 id addresses")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("w, acc and grows must be 16-byte aligned (the "
+                         "kernel copies rows in 16-byte pieces)")
 
 
 def sparse_adagrad_update(w: torch.Tensor, acc: torch.Tensor | None,
@@ -79,13 +88,18 @@ def sparse_adagrad_update(w: torch.Tensor, acc: torch.Tensor | None,
     if K == 0:
         return w, acc
     rs, order = torch.sort(rid, stable=True)
+    lut = (adagrad.device_lut(lr, power_t, iag, w.device)
+           if kind == adagrad.OPT_ADAGRAD_LUT else None)
+    scratch = torch.empty((-(-K // TILE), 2, 2, LANE), dtype=torch.float32,
+                          device=w.device)
     lib = build.load("sparse_update")
     stream = torch.cuda.current_stream(w.device).cuda_stream
     rc = lib.fwt_sparse_adagrad_update(
         w.data_ptr(), acc.data_ptr() if acc is not None else None,
-        rs.data_ptr(), order.data_ptr(), grows.data_ptr(), w.shape[0], K,
-        kind, ctypes.c_float(lr), ctypes.c_float(power_t),
-        ctypes.c_float(iag), stream)
+        rs.data_ptr(), order.data_ptr(), grows.data_ptr(),
+        lut.data_ptr() if lut is not None else None, scratch.data_ptr(),
+        w.shape[0], K, TILE, kind, ctypes.c_float(lr),
+        ctypes.c_float(power_t), stream)
     build.check(lib, rc, "sparse_adagrad_update")
     with _count_lock:
         LAUNCHES += 1

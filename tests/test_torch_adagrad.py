@@ -28,9 +28,12 @@ def bits(a) -> np.ndarray:
     return np.asarray(a, np.float32).view(np.uint32)
 
 
-@pytest.mark.parametrize("lr,power_t,iag", [
+LUT_GRID = [
     (0.1, 0.0, 0.0), (1.0, 0.0, 1.0), (0.1, 0.5, 0.0), (0.1, 0.5, 1.0),
-    (0.15, 0.5, 0.1), (0.1, 0.3, 0.0), (0.5, 0.3, 0.5), (0.1, 0.3, 1.0)])
+    (0.15, 0.5, 0.1), (0.1, 0.3, 0.0), (0.5, 0.3, 0.5), (0.1, 0.3, 1.0)]
+
+
+@pytest.mark.parametrize("lr,power_t,iag", LUT_GRID)
 def test_lut_rate_compute_is_the_table_bit_for_bit(lr, power_t, iag):
     """The arithmetic LUT rate equals the port's build_lut lookup and the
     JAX lut_rate_compute bit for bit, and the port's table is the JAX one."""
@@ -42,6 +45,32 @@ def test_lut_rate_compute_is_the_table_bit_for_bit(lr, power_t, iag):
     jax_got = np.asarray(ja.lut_rate_compute(jnp.asarray(accs), lr, power_t, iag))
     np.testing.assert_array_equal(bits(got), bits(want))
     np.testing.assert_array_equal(bits(got), bits(jax_got))
+
+
+@pytest.mark.parametrize("lr,power_t,iag", LUT_GRID)
+def test_device_lut_is_the_jax_table_bit_for_bit(lr, power_t, iag):
+    """The table the sparse update wrapper hands the CUDA kernel equals the
+    JAX package's build_lut bit for bit, and reading it as the kernel does,
+    at the top 11 bits of acc, gives the port's lut_rate_compute over all
+    2048 buckets."""
+    table = ta.device_lut(lr, power_t, iag, torch.device("cpu"))
+    assert table.dtype == torch.float32 and table.shape == (ta.FASTMATH_LR_LUT_SIZE,)
+    np.testing.assert_array_equal(bits(table.numpy()),
+                                  bits(ja.build_lut(lr, power_t, iag)))
+    accs = torch.from_numpy(bucket_accs())
+    looked_up = table[(accs.view(torch.int32) >> SHIFT) & (ta.FASTMATH_LR_LUT_SIZE - 1)]
+    np.testing.assert_array_equal(
+        bits(looked_up.numpy()),
+        bits(ta.lut_rate_compute(accs, lr, power_t, iag).numpy()))
+
+
+def test_device_lut_is_built_once_per_key():
+    cpu = torch.device("cpu")
+    a = ta.device_lut(0.1, 0.5, 0.0, cpu)
+    assert ta.device_lut(0.1, 0.5, 0.0, cpu) is a
+    b = ta.device_lut(0.1, 0.5, 1.0, cpu)
+    assert b is not a and ta.device_lut(0.1, 0.5, 1.0, cpu) is b
+    assert not torch.equal(a, b)
 
 
 def test_flex_update_matches_jax():
