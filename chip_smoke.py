@@ -7,17 +7,22 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each raising on failure (exit code 1, and no result line):
 
+0. an import hook refuses jax, jaxlib and the JAX package
+   fwumious_wabbit_tpu before the port is imported; the daemon and every
+   CLI run below run in this process, under it, and the run fails if any
+   of them was imported;
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from csrc/ with nvcc (sm_90a), one nvcc per
-   source, all started together;
-3. the FFM triangle kernel against its plain PyTorch version on the card,
-   at the serving shape and at tests/test_pallas_ffm.py's shapes, inputs
-   with both padding forms; tolerance max|kernel−plain| ≤ 1e-5·(1+max|plain|)
-   in f32 with TF32 off; then both versions timed with CUDA events;
-4. the FFM backward kernel against torch autograd of the plain version, at
-   the same shapes plus the training shape and a model whose contra tensor
-   needs more than 48 KB of shared memory (F=40, k=8); same tolerance;
-   both timed at the training shape (B=1024);
+   source, all started together, and beside them the port's C++ host
+   engine (g++, native/);
+3. and 4. the fused FFM kernels (the slab gather inside the forward and the
+   backward) against their plain PyTorch versions — tables.gather, then
+   the triangle and torch autograd of it — at KERNEL_SHAPES and BWD_SHAPES:
+   F=2 k=8 over a table of the main path's full width, the others over
+   2^16-float tables, one-row slabs and F=40 k=8's three-row slabs, both
+   padding forms, duplicate ids, 16-byte and 4-byte loads; tolerance
+   max|kernel−plain| ≤ 1e-5·(1+max|plain|) in f32 with TF32 off, padded
+   positions of the gradient exactly 0, reruns bit-identical;
 5. the sparse AdaGrad update kernel against the plain version
    (ops/adagrad.apply_rows_plain) on the card: LUT, flex and SGD; power_t
    0, 0.5 and 0.25; uniform and duplicate-heavy ids; empty stretches between
@@ -52,13 +57,24 @@ Phases, each raising on failure (exit code 1, and no result line):
    steps), with ``-p`` and ``-f --save_resume``, on the card and again with
    ``--fwt_platform cpu``: the predictions within 1e-5 per line, the four
    tables of the two model files within 1e-5·(1+max|cpu|);
-8. a layer breakdown of the serving path and of one full-width train step.
+8. the fused FFM kernels at the main path's inputs (the serving model's
+   table, the data's first 256 and 1024 lines as the CLI batches them):
+   wall time per call from CUDA events and device time per call from
+   torch.profiler, for the forward at B=256 and B=1024 and the backward at
+   B=1024, beside their plain versions and tables.gather alone, with each
+   call's bound (the bytes its inputs need at 3.35 TB/s);
+9. a layer breakdown of the serving path (with the device kernels per
+   256-line batch) and of one full-width train step (with the kernels'
+   launches per step).
 
 Each main path (6 and 7) runs with the kernels' launch counters set to 0
 just before it and read just after: the FFM forward must have launched in
 both, the FFM backward and the sparse update in training. The script prints
-the kernel table as JSON, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``. It needs one card and no network.
+the kernel table as JSON (each kernel's launches, error, times, bound,
+launches per serving batch and per train step; no single PyTorch call
+computes any of the three, so library_ms is null), the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``. It needs one card
+and no network.
 """
 
 from __future__ import annotations
@@ -91,22 +107,72 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeError(msg)
 
 
-# -- phase 3: the kernel against its plain version --------------------------------
+# -- the import blocker -----------------------------------------------------------
+
+BLOCKED = ("jax", "jaxlib", "fwumious_wabbit_tpu")  # top-level names, exactly
 
 
-def kernel_inputs(F, k, N, B, device):
+class BlockJaxPackage:
+    """An import hook that refuses jax, jaxlib and the JAX package: the
+    port must run without them. Installed before the port is imported;
+    the daemon and every CLI run of this script run in this process."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"chip_smoke.py blocks {name}: the port imports "
+                              f"nothing of jax or of the JAX package")
+        return None
+
+
+def block_jax_package() -> None:
+    sys.meta_path.insert(0, BlockJaxPackage())
+    check(not [m for m in sys.modules if m.split(".")[0] in BLOCKED],
+          "jax or the JAX package was imported before the blocker")
+
+
+# -- phases 3 and 4: the fused FFM kernels against their plain versions -----------
+
+
+def kernel_inputs(F, k, N, B, device, padding, aligned=True, logical=1 << 16):
+    """``(table, ids, vals, fields, spec)`` on the card: a table of
+    ``logical`` floats in the layout of F·k-float slabs (one row up to 128
+    floats, whole rows above), random weights at a trained model's scale;
+    ids spread over the table, each example's second id a repeat of its
+    first and every other example starting with example 0's first id;
+    ``padding`` "minus1" (field −1) or "val0" (Batcher's: field 0, value 0);
+    ``aligned=False`` puts the table 4 bytes off a 16-byte boundary, so the
+    kernels take 4-byte loads."""
     import numpy as np
     import torch
 
+    from fwumious_wabbit_tpu_torch.ops import tables
+
     rng = np.random.default_rng(SEED + F * 1000 + k * 100 + N)
-    emb = rng.normal(scale=0.1, size=(B, N, F * k)).astype(np.float32)
+    spec = tables.make_spec(logical, F * k)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + F * 1000 + k)
+    table = torch.randn((spec.num_rows, tables.LANE), generator=gen,
+                        device=device) * 0.1
+    if not aligned:
+        buf = torch.empty(table.numel() + 1, device=device)
+        buf[1:] = table.reshape(-1)
+        table = buf[1:].view(table.shape)
+    top = (spec.padded_size if spec.rows_per_slab == 1
+           else (spec.num_rows - spec.rows_per_slab + 1) * tables.LANE)
+    ids = rng.integers(0, top, (B, N)).astype(np.int32)
+    if N > 1:
+        ids[:, 1] = ids[:, 0]
+    ids[1::2, 0] = ids[0, 0]
     vals = rng.uniform(0.5, 2.0, (B, N)).astype(np.float32)
     fields = rng.integers(0, F, (B, N)).astype(np.int32)
-    pad = rng.random((B, N))
-    fields[pad < 0.15] = -1  # the kernel's padding convention
-    vals[(pad >= 0.15) & (pad < 0.3)] = 0.0  # Batcher's: field 0, value 0
-    fields[(pad >= 0.15) & (pad < 0.3)] = 0
-    return tuple(torch.from_numpy(a).to(device) for a in (emb, vals, fields))
+    pad = rng.random((B, N)) < 0.3
+    if padding == "minus1":
+        fields[pad] = -1
+    else:
+        fields[pad] = 0
+        vals[pad] = 0.0
+    rest = tuple(torch.from_numpy(a).to(device) for a in (ids, vals, fields))
+    return (table, *rest, spec)
 
 
 def time_ms(fn, reps: int = 2000) -> float:
@@ -125,79 +191,195 @@ def time_ms(fn, reps: int = 2000) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_phase(device) -> dict:
+def device_us(call, reps: int = 50) -> dict:
+    """Device time per call of ``call`` from torch.profiler, with the
+    device kernels it launches per call and its three largest kernels."""
     import torch
 
-    from fwumious_wabbit_tpu_torch.ops import ffm
-
-    max_err = 0.0
-    for F, k, N, B in KERNEL_SHAPES:
-        emb, vals, fields = kernel_inputs(F, k, N, B, device)
-        got = ffm.ffm_triangle(emb, vals, fields, F, k)
+    call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            call()
         torch.cuda.synchronize()
-        ref = ffm.ffm_triangle_reference(emb, vals, fields, F, k)
-        err = (got - ref).abs().max().item()
-        bound = 1e-5 * (1.0 + ref.abs().max().item())
-        print(f"kernel ffm_triangle F={F} k={k} N={N} B={B}: "
-              f"max_abs_err={err!r} (bound {bound!r})", flush=True)
-        check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
-              f"kernel output malformed at {(F, k, N, B)}")
-        check(err <= bound, f"kernel disagrees with plain at {(F, k, N, B)}: "
-                            f"{err} > {bound}")
-        max_err = max(max_err, err)
-    F, k, N, B = KERNEL_SHAPES[0]
-    emb, vals, fields = kernel_inputs(F, k, N, B, device)
-    ms, plain_ms = [], []
-    for order in ("plain", "kernel", "kernel", "plain"):
-        if order == "kernel":
-            ms.append(time_ms(lambda: ffm.ffm_triangle(emb, vals, fields, F, k)))
-        else:
-            plain_ms.append(time_ms(
-                lambda: ffm.ffm_triangle_reference(emb, vals, fields, F, k)))
-    return {"max_abs_err": max_err, "ms": min(ms), "plain_ms": min(plain_ms),
-            "shape": (F, k, N, B)}
+    total, count, rows = 0.0, 0, []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dt = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+        total += dt
+        count += e.count
+        rows.append((round(dt / reps, 3), e.key[:50]))
+    check(total > 0, "the profiler saw no device time")
+    return {"device_us": total / reps, "kernels_per_call": count / reps,
+            "largest": sorted(rows, reverse=True)[:3]}
 
 
-def bwd_phase(device) -> dict:
-    """The FFM backward kernel against torch autograd of the plain forward."""
+def agrees(got, ref) -> tuple:
+    """``(ok, max_abs_err, bound)``: within 1e-5·(1+max|plain|), finite and
+    of plain's shape."""
+    import torch
+
+    err = (got - ref).abs().max().item() if got.numel() else 0.0
+    bound = 1e-5 * (1.0 + (ref.abs().max().item() if ref.numel() else 0.0))
+    ok = (got.shape == ref.shape and bool(torch.isfinite(got).all())
+          and err <= bound)
+    return ok, err, bound
+
+
+def kernel_phase(device, ffm_size: int) -> dict:
+    """The fused forward and backward against their plain versions (the
+    gather, then the triangle and torch autograd of it) at every shape of
+    BWD_SHAPES: real tables of both layouts (F=2 k=8 at the main path's
+    full-width FFM table, ffm_size floats; F=40 k=8 slabs of three rows),
+    both padding forms, duplicate ids, 16-byte and 4-byte loads; padded
+    positions of the gradient exactly 0; a rerun bit-identical."""
     import numpy as np
     import torch
 
     from fwumious_wabbit_tpu_torch.ops import ffm
 
-    max_err = 0.0
+    worst = {"fwd": 0.0, "bwd": 0.0}
     for F, k, N, B in BWD_SHAPES:
-        emb, vals, fields = kernel_inputs(F, k, N, B, device)
-        rng = np.random.default_rng(SEED + B)
-        g = torch.from_numpy(rng.normal(size=(B, F * (F + 1) // 2))
-                             .astype(np.float32)).to(device)
-        got = ffm.ffm_triangle_bwd(g, emb, vals, fields, F, k)
-        torch.cuda.synchronize()
-        ref = ffm.ffm_triangle_bwd_reference(g, emb, vals, fields, F, k)
-        err = (got - ref).abs().max().item()
-        bound = 1e-5 * (1.0 + ref.abs().max().item())
-        pad = (fields < 0) | (vals == 0)
-        print(f"kernel ffm_triangle_bwd F={F} k={k} N={N} B={B}: "
-              f"max_abs_err={err!r} (bound {bound!r})", flush=True)
-        check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
-              f"backward output malformed at {(F, k, N, B)}")
-        check(err <= bound, f"backward kernel disagrees with plain at "
-                            f"{(F, k, N, B)}: {err} > {bound}")
-        check(int(torch.count_nonzero(got[pad])) == 0,
-              f"backward kernel moves padded positions at {(F, k, N, B)}")
-        max_err = max(max_err, err)
-    F, k, N, B = 2, 8, 8, TRAIN_BATCH
-    emb, vals, fields = kernel_inputs(F, k, N, B, device)
-    g = torch.ones((B, F * (F + 1) // 2), device=device)
-    ms, plain_ms = [], []
-    for order in ("plain", "kernel", "kernel", "plain"):
-        if order == "kernel":
-            ms.append(time_ms(lambda: ffm.ffm_triangle_bwd(g, emb, vals, fields, F, k)))
-        else:
-            plain_ms.append(time_ms(lambda: ffm.ffm_triangle_bwd_reference(
-                g, emb, vals, fields, F, k), reps=500))
-    return {"max_abs_err": max_err, "ms": min(ms), "plain_ms": min(plain_ms),
-            "shape": (F, k, N, B)}
+        logical = ffm_size if (F, k) == (2, 8) else 1 << 16
+        errs = {"fwd": 0.0, "bwd": 0.0}
+        for padding in ("minus1", "val0"):
+            for aligned in (True, False):
+                table, ids, vals, fields, spec = kernel_inputs(
+                    F, k, N, B, device, padding, aligned, logical)
+                what = f"F={F} k={k} N={N} B={B} {padding} aligned={aligned}"
+                got = ffm.ffm_fused(table, ids, vals, fields, F, k, spec)
+                torch.cuda.synchronize()
+                ref = ffm.ffm_fused_reference(table, ids, vals, fields, F, k, spec)
+                ok, err, bound = agrees(got, ref)
+                check(ok, f"fused forward disagrees with plain at {what}: "
+                          f"{err} > {bound}")
+                again = ffm.ffm_fused(table, ids, vals, fields, F, k, spec)
+                check(torch.equal(got, again), f"fused forward reruns differ at {what}")
+                errs["fwd"] = max(errs["fwd"], err)
+                rng = np.random.default_rng(SEED + B + N)
+                g = torch.from_numpy(rng.normal(size=(B, F * (F + 1) // 2))
+                                     .astype(np.float32)).to(device)
+                dgot = ffm.ffm_fused_bwd(g, table, ids, vals, fields, F, k, spec)
+                torch.cuda.synchronize()
+                dref = ffm.ffm_fused_bwd_reference(g, table, ids, vals, fields,
+                                                   F, k, spec)
+                ok, err, bound = agrees(dgot, dref)
+                check(ok, f"fused backward disagrees with plain at {what}: "
+                          f"{err} > {bound}")
+                pad = (fields < 0) | (fields >= F) | (vals == 0)
+                check(int(torch.count_nonzero(dgot[pad])) == 0,
+                      f"fused backward moves padded positions at {what}")
+                dagain = ffm.ffm_fused_bwd(g, table, ids, vals, fields, F, k, spec)
+                check(torch.equal(dgot, dagain), f"fused backward reruns differ at {what}")
+                errs["bwd"] = max(errs["bwd"], err)
+                del table
+        print(f"kernel ffm_fused F={F} k={k} N={N} B={B} ({logical} floats, "
+              f"rows per slab {spec.rows_per_slab}; both paddings, 16- and "
+              f"4-byte loads): max_abs_err forward {errs['fwd']!r}, backward "
+              f"{errs['bwd']!r} (bound 1e-5·(1+max|plain|)); reruns "
+              f"bit-identical", flush=True)
+        worst = {key: max(worst[key], errs[key]) for key in worst}
+    torch.cuda.empty_cache()
+    return worst
+
+
+H100_BYTES_S = 3.35e12  # H100 SXM HBM3 (NVIDIA's data sheet)
+H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over its memory rate or
+    f32 operations over its peak, the larger."""
+    t_bytes, t_ops = nbytes / H100_BYTES_S, ops / H100_F32_FLOPS
+    return {"bytes": int(nbytes), "ops": int(ops),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def ffm_work(ids, vals, fields, F, k, spec, backward: bool) -> dict:
+    """The bound of one fused call on these inputs: ids, values and fields
+    read once; each distinct slab that a position needs (field in [0, F),
+    value ≠ 0) read once; the triangle (or g_out) once; d emb written once
+    (backward). Operations: the contra sums (2·F·k per needed position),
+    the self terms or the gradient, and the triangle's dot products."""
+    import torch
+
+    from fwumious_wabbit_tpu_torch.ops import ffm
+
+    B, N = ids.shape
+    T = F * (F + 1) // 2
+    need = (fields >= 0) & (fields < F) & (vals != 0)
+    slabs = int(torch.unique((ids.long() & ffm.slab_mask(spec))[need]).numel())
+    used = int(need.sum())
+    nbytes = B * N * 12 + slabs * F * k * 4 + B * T * 4
+    ops = used * 2 * F * k + B * T * 2 * k
+    if backward:
+        nbytes += B * N * F * k * 4
+        ops += B * N * F * k * 3
+    else:
+        ops += used * 3 * k
+    return bound(nbytes, ops)
+
+
+def ffm_timing(path: Path, data: Path, device) -> dict:
+    """The fused kernels at the main path's inputs: the serving model's
+    full-width FFM table and the first 256 and 1024 lines of the data as the
+    CLI batches them. Per call, wall time from CUDA events (plain, kernel,
+    kernel, plain) and device time from torch.profiler, for the fused
+    forward at B=256 and B=1024 and the fused backward at B=1024; beside
+    them tables.gather alone at the same inputs (the first half of the plain
+    version, which the unfused kernels needed before them)."""
+    import numpy as np
+    import torch
+
+    from fwumious_wabbit_tpu_torch.ingest import Batcher, FeatureTranslator, VowpalParser
+    from fwumious_wabbit_tpu_torch.ops import ffm, tables
+    from fwumious_wabbit_tpu_torch.persistence.model_file import load_model
+
+    mi, vw, model = load_model(path, immutable=True, device=device)
+    parser, ft = VowpalParser(vw), FeatureTranslator(mi)
+    tes = [ft.translate(parser.parse_line(line))
+           for line in data.read_bytes().splitlines(True)[:TRAIN_BATCH]]
+    table, spec, F, k = model.ffm_w, model.ffm_spec, model.num_fields, model.ffm_k
+    out = {}
+    for B in (256, TRAIN_BATCH):
+        b = Batcher(B).make_batch(tes[:B], pad_to_batch=True)
+        ids, vals, fields = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                             for a in (b.ffm_ids.astype(np.int32), b.ffm_vals,
+                                       b.ffm_fields.astype(np.int32)))
+        args = (table, ids, vals, fields, F, k, spec)
+        ok, _, _ = agrees(ffm.ffm_fused(*args), ffm.ffm_fused_reference(*args))
+        check(ok, f"fused forward disagrees with plain at the main path's B={B}")
+        calls = {"fwd": lambda: ffm.ffm_fused(*args),
+                 "fwd_plain": lambda: ffm.ffm_fused_reference(*args),
+                 "gather": lambda: tables.gather(table, ids, spec)}
+        if B == TRAIN_BATCH:
+            g = torch.from_numpy(np.random.default_rng(SEED).normal(
+                size=(B, F * (F + 1) // 2)).astype(np.float32)).to(device)
+            ok, _, _ = agrees(ffm.ffm_fused_bwd(g, *args),
+                                 ffm.ffm_fused_bwd_reference(g, *args))
+            check(ok, f"fused backward disagrees with plain at the main path's B={B}")
+            calls["bwd"] = lambda: ffm.ffm_fused_bwd(g, *args)
+            calls["bwd_plain"] = lambda: ffm.ffm_fused_bwd_reference(g, *args)
+        wall = {name: [] for name in calls}
+        for order in ("plain", "kernel", "kernel", "plain"):
+            for name, call in calls.items():
+                if ("plain" in name) == (order == "plain"):
+                    wall[name].append(time_ms(call, reps=300 if "plain" in name else 2000))
+        res = {"N": int(ids.shape[1]),
+               "wall_us": {name: min(v) * 1e3 for name, v in wall.items()},
+               "device": {name: device_us(call) for name, call in calls.items()},
+               "fwd_bound": ffm_work(ids, vals, fields, F, k, spec, False)}
+        if B == TRAIN_BATCH:
+            res["bwd_bound"] = ffm_work(ids, vals, fields, F, k, spec, True)
+        out[B] = res
+        print(f"timing: ffm_fused at the main path's B={B} N={res['N']} F={F} "
+              f"k={k}: " + json.dumps(res), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
 def update_case(R, K, seed, device, dup_heavy=False, pad=0, zipf=False):
@@ -638,6 +820,7 @@ def layer_breakdown(path: Path, lines: list[bytes], device) -> dict:
     import torch
 
     from fwumious_wabbit_tpu_torch.ingest import Batcher, FeatureTranslator, VowpalParser
+    from fwumious_wabbit_tpu_torch.ops import ffm
     from fwumious_wabbit_tpu_torch.persistence.model_file import load_model
     from fwumious_wabbit_tpu_torch.serve.server import _format_preds
     from fwumious_wabbit_tpu_torch.train.step import batch_dict
@@ -685,13 +868,15 @@ def layer_breakdown(path: Path, lines: list[bytes], device) -> dict:
 
         prof_rows = []
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        launches0 = ffm.LAUNCHES
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for b in db:
                 model.predict(b)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        dev_total = 0.0
+        t["ffm_fused_launches_per_batch"] = (ffm.LAUNCHES - launches0) / n_b
+        dev_total, n_kernels = 0.0, 0
         for e in prof.key_averages():
             # device-side events only: the aten ops that launched them carry
             # the same time again
@@ -700,9 +885,11 @@ def layer_breakdown(path: Path, lines: list[bytes], device) -> dict:
             dt = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
             prof_rows.append((dt, e.key[:60], e.count))
             dev_total += dt
+            n_kernels += e.count
         prof_rows.sort(reverse=True)
         t["profiled_wall_us_per_batch"] = wall / n_b * 1e6
         t["device_busy_us_per_batch"] = dev_total / n_b
+        t["device_kernels_per_batch"] = n_kernels / n_b
         t["device_kernels"] = [(name, count, round(dt / n_b, 2))
                                for dt, name, count in prof_rows[:10]]
     return t
@@ -901,6 +1088,12 @@ def step_update_phase(data: Path, device) -> dict:
         check(ok, f"sparse update kernel disagrees with plain at the train "
                   f"step's {name} shape")
         out["max_abs_err"] = max(out["max_abs_err"], w_err, a_err)
+        # rid and the gradient rows read once, each touched row's w and acc
+        # read and written once, the LUT read once; a sum and ~6 operations
+        # of the rate and update per weight
+        K = rid.shape[0]
+        out[f"{name}_bound"] = bound(K * 4 + K * 512 + touched * 512 * 4 + 8192,
+                                     K * 128 + touched * 128 * 6)
         call = lambda: sparse_update.sparse_adagrad_update(  # noqa: E731
             w1, a1, rid, grows, *args)
         ms, plain_ms = [], []
@@ -928,6 +1121,7 @@ def train_breakdown(data: Path, device, n_b: int = 8) -> dict:
     torch.profiler."""
     import torch
 
+    from fwumious_wabbit_tpu_torch.ops import ffm, sparse_update
     from fwumious_wabbit_tpu_torch.train import step as st
 
     model, hb, t = train_batches(data, device, n_b)
@@ -974,26 +1168,54 @@ def train_breakdown(data: Path, device, n_b: int = 8) -> dict:
 
     prof_rows = []
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    before = (ffm.LAUNCHES, ffm.BWD_LAUNCHES, sparse_update.LAUNCHES)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for b in hb:
             step(b)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_total = 0.0
+    after = (ffm.LAUNCHES, ffm.BWD_LAUNCHES, sparse_update.LAUNCHES)
+    t["launches_per_step"] = dict(zip(
+        ("ffm_triangle", "ffm_triangle_bwd", "sparse_adagrad_update"),
+        ((a - b) / n_b for a, b in zip(after, before))))
+    dev_total, n_kernels = 0.0, 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         dt = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
         prof_rows.append((dt, e.key[:60], e.count))
         dev_total += dt
+        n_kernels += e.count
     prof_rows.sort(reverse=True)
     t["profiled_wall_us_per_step"] = wall / n_b * 1e6
     t["device_busy_us_per_step"] = dev_total / n_b
+    t["device_kernels_per_step"] = n_kernels / n_b
     t["device_idle_share"] = 1.0 - dev_total / (wall * 1e6)
     t["device_kernels"] = [(name, count, round(dt / n_b, 2))
                            for dt, name, count in prof_rows[:12]]
     return t
+
+
+def step_bound(step_upd: dict) -> dict:
+    """The sparse update's bound per train step: its LR and FFM calls."""
+    lr, fm = step_upd["lr_bound"], step_upd["ffm_bound"]
+    return {"bytes": lr["bytes"] + fm["bytes"], "ops": lr["ops"] + fm["ops"],
+            "bound_ms": lr["bound_ms"] + fm["bound_ms"],
+            "bound_by": lr["bound_by"] if lr["bound_by"] == fm["bound_by"] else "bytes"}
+
+
+def kernel_row(name, source, replaces, launches, err, ms, plain_ms, work,
+               device_us_per_call, per_batch, per_step) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": "fwumious_wabbit_tpu_torch/csrc/" + source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": work["bound_ms"],
+            "bound_by": work["bound_by"], "library_ms": None,
+            "bound_us": work["bound_ms"] * 1e3, "bytes": work["bytes"],
+            "device_us": device_us_per_call,
+            "launches_per_serving_batch": per_batch,
+            "launches_per_train_step": per_step}
 
 
 def main() -> int:
@@ -1004,9 +1226,10 @@ def main() -> int:
                          "test needs a CUDA card")
     check((ROOT / "fwumious_wabbit_tpu_torch").is_dir(),
           "run chip_smoke.py from the root of a checkout of the repository")
+    block_jax_package()
     sys.path.insert(0, str(ROOT))
 
-    from fwumious_wabbit_tpu_torch import synthetic
+    from fwumious_wabbit_tpu_torch import native, synthetic
     from fwumious_wabbit_tpu_torch.ops import ffm
     from fwumious_wabbit_tpu_torch.ops.kernels import build
     from fwumious_wabbit_tpu_torch.persistence.model_file import load_model
@@ -1020,22 +1243,27 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
+    # the C++ host engine (g++, the -p reply formatter) builds beside nvcc
+    host_engine = threading.Thread(target=native.load, daemon=True)
+    host_engine.start()
     for src in build.sources():  # the first load builds every source at once
         build.load(src.stem)
+    host_engine.join()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {build.build_seconds:.2f} s)", flush=True)
+          f"(nvcc {build.build_seconds:.2f} s; host engine "
+          f"{'built' if native.load() is not None else 'unavailable: ' + native.load_error})",
+          flush=True)
     print(f"  on {card}", flush=True)
     for line in build.build_log.splitlines():
         if "registers" in line or "smem" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
 
-    kern = kernel_phase(device)
-    bwd = bwd_phase(device)
-    upd = update_phase(device)
     data = synthetic.ensure_dataset(ROOT / ".bench_cache" / "chip_smoke", 10_000)
+    mi, vw = synthetic.serving_config(data)
+    kern = kernel_phase(device, mi.ffm_weights_len)
+    upd = update_phase(device)
     step_upd = step_update_phase(data, device)
 
-    mi, vw = synthetic.serving_config(data)
     paths = (data.with_name("chip_smoke_a.fwt"), data.with_name("chip_smoke_b.fwt"))
     for path, seed in zip(paths, (SEED, SEED + 1)):
         write_model(path, mi, vw, seed)
@@ -1053,26 +1281,38 @@ def main() -> int:
     ffm.LAUNCHES = 0  # the serving path starts here
     srv = serving_phase(data, paths)
     launches = ffm.LAUNCHES
-    print(f"ffm_triangle kernel launches on the serving path: {launches}", flush=True)
-    check(launches > 0, "the serving path never launched the ffm_triangle kernel")
+    print(f"ffm_fused kernel launches on the serving path: {launches}", flush=True)
+    check(launches > 0, "the serving path never launched the fused FFM forward")
 
     trn = training_phase(data)  # the training path; resets its counters
 
-    F, k, N, B = kern["shape"]
-    print(f"timing: ffm_triangle kernel {kern['ms'] * 1e3:.2f} us vs plain "
-          f"PyTorch {kern['plain_ms'] * 1e3:.2f} us per call at B={B} N={N} "
-          f"F={F} k={k}", flush=True)
-    print(f"  on {card}", flush=True)
+    timing = ffm_timing(paths[0], data, device)
+    fwd256, t1024 = timing[256], timing[TRAIN_BATCH]
+    for B, res in timing.items():
+        w, d = res["wall_us"], res["device"]
+        line = (f"timing: at the main path's B={B} N={res['N']} F=2 k=8, per "
+                f"call: fused forward {w['fwd']:.2f} us wall, "
+                f"{d['fwd']['device_us']:.3f} us device (bound "
+                f"{res['fwd_bound']['bound_ms'] * 1e3:.4f} us); plain (gather "
+                f"+ triangle) {w['fwd_plain']:.2f} us wall, "
+                f"{d['fwd_plain']['device_us']:.3f} us device in "
+                f"{d['fwd_plain']['kernels_per_call']:.0f} kernels; "
+                f"tables.gather alone {w['gather']:.2f} us wall, "
+                f"{d['gather']['device_us']:.3f} us device in "
+                f"{d['gather']['kernels_per_call']:.0f} kernels")
+        if "bwd" in w:
+            line += (f"; fused backward {w['bwd']:.2f} us wall, "
+                     f"{d['bwd']['device_us']:.3f} us device (bound "
+                     f"{res['bwd_bound']['bound_ms'] * 1e3:.4f} us); plain "
+                     f"backward {w['bwd_plain']:.2f} us wall, "
+                     f"{d['bwd_plain']['device_us']:.3f} us device")
+        print(line, flush=True)
+        print(f"  on {card}", flush=True)
     print(f"timing: daemon request/response p50 {srv['p50_us']:.1f} us, p99 "
           f"{srv['p99_us']:.1f} us over {srv['n_rr']} lines", flush=True)
     print(f"  on {card}", flush=True)
     print(f"timing: daemon pipelined burst {srv['burst_lines_s']:.0f} lines/s "
           f"(4096 lines)", flush=True)
-    print(f"  on {card}", flush=True)
-    F, k, N, B = bwd["shape"]
-    print(f"timing: ffm_triangle_bwd kernel {bwd['ms'] * 1e3:.2f} us vs plain "
-          f"PyTorch autograd {bwd['plain_ms'] * 1e3:.2f} us per call at B={B} "
-          f"N={N} F={F} k={k}", flush=True)
     print(f"  on {card}", flush=True)
     print(update_timing_line(
         f"at R=262144 K={TRAIN_BATCH * 15} Zipf ids ({upd['unique_rows']} "
@@ -1083,8 +1323,8 @@ def main() -> int:
         print(update_timing_line(
             f"at the train step's {name.upper()} shape, B={TRAIN_BATCH} "
             f"K={step_upd[name + '_K']}", step_upd[name + "_ms"],
-            step_upd[name + "_plain_ms"], step_upd[name + "_device"]),
-            flush=True)
+            step_upd[name + "_plain_ms"], step_upd[name + "_device"])
+            + f"; bound {json.dumps(step_upd[name + '_bound'])}", flush=True)
         print(f"  on {card}", flush=True)
     print(f"timing: sparse_adagrad_update per train step (LR + FFM): kernel "
           f"{step_upd['ms'] * 1e3:.2f} us vs plain "
@@ -1102,26 +1342,34 @@ def main() -> int:
     print(f"timing: layers per {TRAIN_BATCH}-line train step: "
           + json.dumps(tlayers), flush=True)
     print(f"  on {card}", flush=True)
+    check(not [m for m in sys.modules if m.split(".")[0] in BLOCKED],
+          "jax or the JAX package was imported")
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
-    csrc = "fwumious_wabbit_tpu_torch/csrc/"
+    per_step = tlayers["launches_per_step"]
+    upd_dev = step_upd["lr_device"]["device_us"] + step_upd["ffm_device"]["device_us"]
     print(json.dumps({"kernels": [
-        {"name": "ffm_triangle", "route": "cuda", "source": csrc + "ffm_triangle.cu",
-         "replaces": "fwumious_wabbit_tpu/ops/pallas/ffm.py:131",
-         "launches": launches, "max_abs_err": kern["max_abs_err"],
-         "ms": kern["ms"], "plain_ms": kern["plain_ms"]},
-        {"name": "ffm_triangle_bwd", "route": "cuda",
-         "source": csrc + "ffm_triangle.cu",
-         "replaces": "jax.vjp of models/model.py:418-443",
-         "launches": trn["launches"]["ffm_triangle_bwd"],
-         "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
-         "plain_ms": bwd["plain_ms"]},
-        {"name": "sparse_adagrad_update", "route": "cuda",
-         "source": csrc + "sparse_update.cu",
-         "replaces": "fwumious_wabbit_tpu/ops/pallas/sparse_update.py:315",
-         "launches": trn["launches"]["sparse_adagrad_update"],
-         "max_abs_err": max(upd["max_abs_err"], step_upd["max_abs_err"]),
-         "ms": step_upd["ms"], "plain_ms": step_upd["plain_ms"]}]}))
+        kernel_row("ffm_triangle", "ffm_triangle.cu",
+                   "fwumious_wabbit_tpu/ops/pallas/ffm.py:131 (with the slab "
+                   "gather of ops/tables.py)", launches, kern["fwd"],
+                   fwd256["wall_us"]["fwd"] / 1e3,
+                   fwd256["wall_us"]["fwd_plain"] / 1e3, fwd256["fwd_bound"],
+                   fwd256["device"]["fwd"]["device_us"],
+                   layers["ffm_fused_launches_per_batch"],
+                   per_step["ffm_triangle"]),
+        kernel_row("ffm_triangle_bwd", "ffm_triangle.cu",
+                   "jax.vjp of models/model.py:418-443 (no Pallas kernel)",
+                   trn["launches"]["ffm_triangle_bwd"], kern["bwd"],
+                   t1024["wall_us"]["bwd"] / 1e3,
+                   t1024["wall_us"]["bwd_plain"] / 1e3, t1024["bwd_bound"],
+                   t1024["device"]["bwd"]["device_us"], 0,
+                   per_step["ffm_triangle_bwd"]),
+        kernel_row("sparse_adagrad_update", "sparse_update.cu",
+                   "fwumious_wabbit_tpu/ops/pallas/sparse_update.py:315",
+                   trn["launches"]["sparse_adagrad_update"],
+                   max(upd["max_abs_err"], step_upd["max_abs_err"]),
+                   step_upd["ms"], step_upd["plain_ms"], step_bound(step_upd),
+                   upd_dev, 0, per_step["sparse_adagrad_update"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

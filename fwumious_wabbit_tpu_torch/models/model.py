@@ -25,11 +25,10 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from fwumious_wabbit_tpu.config.model_instance import ModelInstance, Optimizer
-
+from ..config.model_instance import ModelInstance, Optimizer
 from ..ops import tables
 from ..ops.adagrad import OPT_ADAGRAD_FLEX, OPT_ADAGRAD_LUT, OPT_SGD, ScopedOptimizer
-from ..ops.ffm import FfmTriangle, triangle_indices
+from ..ops.ffm import FfmFused, triangle_indices
 
 _OPT_KIND = {
     Optimizer.SGD: OPT_SGD,
@@ -231,10 +230,6 @@ class FwModel(nn.Module):
         """Scalar weights w[h] for the LR ids → [B, L]."""
         return tables.gather_scalars(self.lr_w, batch["lr_ids"])
 
-    def gather_ffm(self, batch: dict) -> torch.Tensor:
-        """[B, N, F·k] embedding slabs of the FFM ids."""
-        return tables.gather(self.ffm_w, batch["ffm_ids"], self.ffm_spec)
-
     def lr_outputs(self, lr_wg: torch.Tensor, batch: dict) -> torch.Tensor:
         """[B, C]: per-combo sums of w[hash]·value
         (reference: src/block_lr.rs:28-47), as a masked scatter-add. A combo
@@ -246,12 +241,17 @@ class FwModel(nn.Module):
         out = contrib.new_zeros((contrib.shape[0], self.num_combos))
         return out.scatter_add_(1, torch.where(valid, combos, 0), contrib)
 
-    def ffm_outputs(self, emb: torch.Tensor, batch: dict) -> torch.Tensor:
-        """[B, F(F+1)/2] interaction triangle through ops/ffm.FfmTriangle
-        (the kernel pair on the card; the gradient flows to ``emb``)."""
-        return FfmTriangle.apply(emb.contiguous(), batch["ffm_vals"].contiguous(),
-                            batch["ffm_fields"].to(torch.int32).contiguous(),
-                            self.num_fields, self.ffm_k)
+    def ffm_outputs(self, batch: dict, emb_leaf: torch.Tensor | None = None
+                    ) -> torch.Tensor:
+        """[B, F(F+1)/2] interaction triangle through ops/ffm.FfmFused: the
+        slabs of the FFM ids are read from ``ffm_w`` inside the kernel (the
+        kernel pair on the card). With ``emb_leaf`` (ops/ffm.slab_leaf) the
+        gradient with respect to the gathered slabs flows to it."""
+        return FfmFused.apply(emb_leaf, self.ffm_w,
+                              batch["ffm_ids"].to(torch.int32).contiguous(),
+                              batch["ffm_vals"].contiguous(),
+                              batch["ffm_fields"].to(torch.int32).contiguous(),
+                              self.num_fields, self.ffm_k, self.ffm_spec)
 
     def tower(self, x: torch.Tensor) -> torch.Tensor:
         """Dense tower + final readout → [B] logits (predict path)."""
@@ -280,7 +280,7 @@ class FwModel(nn.Module):
         """Logits [B] for a batch dict of tensors on the model's device."""
         parts = [self.lr_outputs(self.gather_lr(batch), batch)]
         if self.has_ffm:
-            parts.append(self.ffm_outputs(self.gather_ffm(batch), batch))
+            parts.append(self.ffm_outputs(batch))
         x = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
         if self.has_nn:
             return self.tower(x)

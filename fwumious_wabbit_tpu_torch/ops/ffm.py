@@ -1,22 +1,29 @@
-"""FFM field-pair interactions — the counterpart of
-fwumious_wabbit_tpu/ops/pallas/ffm.py.
+"""FFM field-pair interactions with the slab gather fused in — the
+counterpart of fwumious_wabbit_tpu/ops/pallas/ffm.py and of the gather
+before it (ops/tables.py ``gather``).
 
-:func:`ffm_triangle` computes, per example,
+:func:`ffm_fused` computes, per example, from the flat FFM table, the
+feature ids and their values and fields (e[n] = feature n's slab, gathered
+by :func:`tables.gather`'s rule),
 
-    C[t,f,:]    = Σ_{n: field(n)=f} v_n · emb[n, t·k:(t+1)·k]
-    inter[t,f]  = ½⟨C[t,f,:], C[f,t,:]⟩ − [t=f]·½Σ_{n∈t} v_n²‖emb[n, t·k:(t+1)·k]‖²
+    C[t,f,:]    = Σ_{n: field(n)=f} v_n · e[n, t·k:(t+1)·k]
+    inter[t,f]  = ½⟨C[t,f,:], C[f,t,:]⟩ − [t=f]·½Σ_{n∈t} v_n²‖e[n, t·k:(t+1)·k]‖²
     out[tri(i,j)] = inter[i,j] · (2 if j < i else 1)   (row-major lower triangle)
 
 On a CUDA tensor it launches the hand-written kernel in
-``csrc/ffm_triangle.cu`` (built on first use) or raises; there is no
-fallback. On a CPU tensor it runs :func:`ffm_triangle_reference`, the plain
-PyTorch version, which mirrors the JAX model's unfused path
+``csrc/ffm_triangle.cu`` (built on first use), which reads each slab
+straight from the table, or raises; there is no fallback. On a CPU tensor it
+runs the plain PyTorch version: :func:`tables.gather` followed by
+:func:`ffm_triangle_reference`, which mirrors the JAX model's unfused path
 (fwumious_wabbit_tpu/models/model.py:418-443).
 
-:func:`ffm_triangle_bwd` is its gradient with respect to ``emb`` (the JAX
-package takes it from ``jax.vjp``): a second hand-written kernel in the same
-source on a CUDA tensor, torch autograd through the plain version on a CPU
-tensor. :class:`FfmTriangle` joins the two as a ``torch.autograd.Function``.
+:func:`ffm_fused_bwd` is its gradient with respect to the gathered slabs
+``d emb [B, N, F·k]`` (the JAX package takes it from ``jax.vjp``): a second
+hand-written kernel in the same source on a CUDA tensor, torch autograd
+through the plain version on a CPU tensor. :class:`FfmFused` joins the two
+as a ``torch.autograd.Function`` whose gradient flows to a stride-0 leaf of
+the slabs' shape (:func:`slab_leaf`): the train step takes ``d emb`` from
+it, and the slabs themselves are never materialized on the card.
 """
 
 from __future__ import annotations
@@ -25,10 +32,11 @@ import threading
 
 import torch
 
+from . import tables
 from .kernels import build
 
-LAUNCHES = 0  # kernel launches made by ffm_triangle (CUDA tensors only)
-BWD_LAUNCHES = 0  # kernel launches made by ffm_triangle_bwd (CUDA tensors only)
+LAUNCHES = 0  # kernel launches made by ffm_fused (CUDA tensors only)
+BWD_LAUNCHES = 0  # kernel launches made by ffm_fused_bwd (CUDA tensors only)
 _count_lock = threading.Lock()
 
 # dynamic shared memory a block may use on Hopper (227 KB)
@@ -66,10 +74,41 @@ def ffm_triangle_reference(emb: torch.Tensor, vals: torch.Tensor,
                                            device=emb.device)
 
 
+def ffm_triangle_bwd_reference(g_out: torch.Tensor, emb: torch.Tensor,
+                               vals: torch.Tensor, fields: torch.Tensor,
+                               F: int, k: int) -> torch.Tensor:
+    """Torch autograd through :func:`ffm_triangle_reference` →
+    ``d emb [B, N, F·k]``."""
+    with torch.enable_grad():
+        e = emb.detach().requires_grad_(True)
+        out = ffm_triangle_reference(e, vals, fields, F, k)
+        (d_emb,) = torch.autograd.grad(out, e, g_out)
+    return d_emb
+
+
+def ffm_fused_reference(table: torch.Tensor, ids: torch.Tensor,
+                        vals: torch.Tensor, fields: torch.Tensor, F: int,
+                        k: int, spec: tables.TableSpec) -> torch.Tensor:
+    """Plain version of :func:`ffm_fused`: the gather, then the triangle."""
+    return ffm_triangle_reference(tables.gather(table, ids, spec), vals, fields,
+                                  F, k)
+
+
+def ffm_fused_bwd_reference(g_out: torch.Tensor, table: torch.Tensor,
+                            ids: torch.Tensor, vals: torch.Tensor,
+                            fields: torch.Tensor, F: int, k: int,
+                            spec: tables.TableSpec) -> torch.Tensor:
+    """Plain version of :func:`ffm_fused_bwd`: the gather, then autograd
+    through :func:`ffm_triangle_reference`."""
+    return ffm_triangle_bwd_reference(g_out, tables.gather(table, ids, spec),
+                                      vals, fields, F, k)
+
+
 def shared_memory_bytes(F: int, k: int, backward: bool = False) -> int:
     """Dynamic shared memory a block of the forward (C and F self terms) or
-    of the backward (C and the F×F upstream gradient) needs; raises
-    ValueError above the card's per-block limit."""
+    of the backward (C and the F×F upstream gradient) needs on the kernels'
+    shared-memory path; raises ValueError above the card's per-block
+    limit."""
     smem = (F * F * k + (F * F if backward else F)) * 4
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(
@@ -79,112 +118,131 @@ def shared_memory_bytes(F: int, k: int, backward: bool = False) -> int:
     return smem
 
 
-def _check(emb, vals, fields, F, k, backward: bool) -> None:
-    if emb.dim() != 3 or emb.shape[2] != F * k:
-        raise ValueError(f"emb must be [B, N, F*k={F * k}], got {tuple(emb.shape)}")
-    B, N = emb.shape[:2]
-    if tuple(vals.shape) != (B, N) or tuple(fields.shape) != (B, N):
-        raise ValueError(f"vals and fields must be [B, N]={B, N}, got "
-                         f"{tuple(vals.shape)} and {tuple(fields.shape)}")
-    if emb.dtype != torch.float32 or vals.dtype != torch.float32:
-        raise TypeError("emb and vals must be float32")
-    if fields.dtype != torch.int32:
-        raise TypeError("fields must be int32")
-    if not (emb.device == vals.device == fields.device):
-        raise ValueError("emb, vals and fields must be on one device")
-    if not (emb.is_contiguous() and vals.is_contiguous()
-            and fields.is_contiguous()):
-        raise ValueError("emb, vals and fields must be contiguous")
+def slab_mask(spec: tables.TableSpec) -> int:
+    """The kernels' ``base = id & mask`` (:func:`tables.gather`'s rule) as a
+    signed 32-bit int: the id's aligned window, or its whole row when a
+    slab spans rows."""
+    return ~(spec.align - 1) if spec.rows_per_slab == 1 else ~(tables.LANE - 1)
+
+
+def _check(table, ids, vals, fields, F, k, spec, backward: bool) -> None:
+    if spec.slab != F * k:
+        raise ValueError(f"the table's slab is {spec.slab} floats, not F*k={F * k}")
+    if table.dim() != 2 or tuple(table.shape) != (spec.num_rows, tables.LANE):
+        raise ValueError(f"table must be [{spec.num_rows}, {tables.LANE}], got "
+                         f"{tuple(table.shape)}")
+    if ids.dim() != 2:
+        raise ValueError(f"ids must be [B, N], got {tuple(ids.shape)}")
+    if tuple(vals.shape) != tuple(ids.shape) or tuple(fields.shape) != tuple(ids.shape):
+        raise ValueError(f"ids, vals and fields must be [B, N]={tuple(ids.shape)}, "
+                         f"got {tuple(vals.shape)} and {tuple(fields.shape)}")
+    if table.dtype != torch.float32 or vals.dtype != torch.float32:
+        raise TypeError("table and vals must be float32")
+    if ids.dtype != torch.int32 or fields.dtype != torch.int32:
+        raise TypeError("ids and fields must be int32")
+    if not (table.device == ids.device == vals.device == fields.device):
+        raise ValueError("table, ids, vals and fields must be on one device")
+    if not all(t.is_contiguous() for t in (table, ids, vals, fields)):
+        raise ValueError("table, ids, vals and fields must be contiguous")
     shared_memory_bytes(F, k, backward)
-    if emb.device.index != torch.cuda.current_device():
+    if table.device.index != torch.cuda.current_device():
         raise ValueError(f"the FFM kernels launch on the current device "
-                         f"cuda:{torch.cuda.current_device()}, not {emb.device}")
+                         f"cuda:{torch.cuda.current_device()}, not {table.device}")
 
 
-def ffm_triangle(emb: torch.Tensor, vals: torch.Tensor, fields: torch.Tensor,
-                 F: int, k: int) -> torch.Tensor:
-    """``[B, N, F·k]`` f32 slabs, ``vals [B, N]`` f32 and ``fields [B, N]``
-    i32 (−1 = padding) → ``[B, F(F+1)/2]`` f32."""
-    if emb.device.type == "cpu":
-        return ffm_triangle_reference(emb, vals, fields, F, k)
-    if emb.device.type != "cuda":
-        raise ValueError(f"ffm_triangle runs on CUDA or CPU tensors, not "
-                         f"{emb.device.type}")
-    _check(emb, vals, fields, F, k, backward=False)
+def _on_cuda(table: torch.Tensor, what: str) -> bool:
+    if table.device.type == "cpu":
+        return False
+    if table.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, not "
+                         f"{table.device.type}")
+    return True
+
+
+def ffm_fused(table: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor,
+              fields: torch.Tensor, F: int, k: int,
+              spec: tables.TableSpec) -> torch.Tensor:
+    """The FFM ``[num_rows, 128]`` f32 table, ``ids [B, N]`` i32, ``vals
+    [B, N]`` f32 and ``fields [B, N]`` i32 (−1 = padding) →
+    ``[B, F(F+1)/2]`` f32."""
+    if not _on_cuda(table, "ffm_fused"):
+        return ffm_fused_reference(table, ids, vals, fields, F, k, spec)
+    _check(table, ids, vals, fields, F, k, spec, backward=False)
     global LAUNCHES
-    B, N = emb.shape[:2]
+    B, N = ids.shape
     out = torch.empty((B, F * (F + 1) // 2), dtype=torch.float32,
-                      device=emb.device)
+                      device=table.device)
     if B == 0:
         return out
     lib = build.load("ffm_triangle")
-    stream = torch.cuda.current_stream(emb.device).cuda_stream
-    rc = lib.fwt_ffm_triangle(emb.data_ptr(), vals.data_ptr(),
-                              fields.data_ptr(), out.data_ptr(),
-                              B, N, F, k, stream)
-    build.check(lib, rc, "ffm_triangle")
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    rc = lib.fwt_ffm_fused(table.data_ptr(), ids.data_ptr(), vals.data_ptr(),
+                           fields.data_ptr(), out.data_ptr(), B, N, F, k,
+                           slab_mask(spec), int(table.data_ptr() % 16 == 0),
+                           stream)
+    build.check(lib, rc, "ffm_fused")
     with _count_lock:
         LAUNCHES += 1
     return out
 
 
-def ffm_triangle_bwd_reference(g_out: torch.Tensor, emb: torch.Tensor,
-                               vals: torch.Tensor, fields: torch.Tensor,
-                               F: int, k: int) -> torch.Tensor:
-    """Plain version of the backward: torch autograd through
-    :func:`ffm_triangle_reference` → ``d emb [B, N, F·k]``."""
-    with torch.enable_grad():
-        e = emb.detach().requires_grad_(True)
-        out = ffm_triangle_reference(e, vals, fields, F, k)
-        (d_emb,) = torch.autograd.grad(out, e, g_out)
-    return d_emb
-
-
-def ffm_triangle_bwd(g_out: torch.Tensor, emb: torch.Tensor, vals: torch.Tensor,
-                     fields: torch.Tensor, F: int, k: int) -> torch.Tensor:
-    """Gradient of :func:`ffm_triangle` with respect to ``emb``: ``g_out
-    [B, F(F+1)/2]`` f32 → ``[B, N, F·k]`` f32. Padded positions get 0."""
-    if emb.device.type == "cpu":
-        return ffm_triangle_bwd_reference(g_out, emb, vals, fields, F, k)
-    if emb.device.type != "cuda":
-        raise ValueError(f"ffm_triangle_bwd runs on CUDA or CPU tensors, not "
-                         f"{emb.device.type}")
-    _check(emb, vals, fields, F, k, backward=True)
-    B, N = emb.shape[:2]
+def ffm_fused_bwd(g_out: torch.Tensor, table: torch.Tensor, ids: torch.Tensor,
+                  vals: torch.Tensor, fields: torch.Tensor, F: int, k: int,
+                  spec: tables.TableSpec) -> torch.Tensor:
+    """Gradient of :func:`ffm_fused` with respect to the gathered slabs:
+    ``g_out [B, F(F+1)/2]`` f32 → ``d emb [B, N, F·k]`` f32, the layout
+    train/step.ffm_update_rows takes. Padded positions get 0."""
+    if not _on_cuda(table, "ffm_fused_bwd"):
+        return ffm_fused_bwd_reference(g_out, table, ids, vals, fields, F, k,
+                                       spec)
+    _check(table, ids, vals, fields, F, k, spec, backward=True)
+    B, N = ids.shape
     T = F * (F + 1) // 2
     if tuple(g_out.shape) != (B, T) or g_out.dtype != torch.float32 \
-            or g_out.device != emb.device or not g_out.is_contiguous():
+            or g_out.device != table.device or not g_out.is_contiguous():
         raise ValueError(f"g_out must be a contiguous float32 [B, {T}] tensor "
-                         f"on {emb.device}, got {tuple(g_out.shape)} "
+                         f"on {table.device}, got {tuple(g_out.shape)} "
                          f"{g_out.dtype} on {g_out.device}")
     global BWD_LAUNCHES
-    d_emb = torch.empty_like(emb)
+    d_emb = torch.empty((B, N, F * k), dtype=torch.float32, device=table.device)
     if B == 0 or N == 0:
         return d_emb
     lib = build.load("ffm_triangle")
-    stream = torch.cuda.current_stream(emb.device).cuda_stream
-    rc = lib.fwt_ffm_triangle_bwd(g_out.data_ptr(), emb.data_ptr(),
-                                  vals.data_ptr(), fields.data_ptr(),
-                                  d_emb.data_ptr(), B, N, F, k, stream)
-    build.check(lib, rc, "ffm_triangle_bwd")
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    rc = lib.fwt_ffm_fused_bwd(g_out.data_ptr(), table.data_ptr(), ids.data_ptr(),
+                               vals.data_ptr(), fields.data_ptr(),
+                               d_emb.data_ptr(), B, N, F, k, slab_mask(spec),
+                               int(table.data_ptr() % 16 == 0), stream)
+    build.check(lib, rc, "ffm_fused_bwd")
     with _count_lock:
         BWD_LAUNCHES += 1
     return d_emb
 
 
-class FfmTriangle(torch.autograd.Function):
-    """:func:`ffm_triangle` with :func:`ffm_triangle_bwd` as its backward;
-    the gradient flows to ``emb`` only."""
+def slab_leaf(ids: torch.Tensor, F: int, k: int) -> torch.Tensor:
+    """A leaf of the gathered slabs' shape ``[B, N, F·k]`` that holds no
+    slabs (one zero, expanded with stride 0) and requires grad: the
+    gradient :class:`FfmFused` returns for it is ``d emb``."""
+    B, N = ids.shape
+    zero = torch.zeros((), dtype=torch.float32, device=ids.device)
+    return zero.expand(B, N, F * k).requires_grad_(True)
+
+
+class FfmFused(torch.autograd.Function):
+    """:func:`ffm_fused` with :func:`ffm_fused_bwd` as its backward. The
+    first argument is a :func:`slab_leaf` (or None, for no gradient); the
+    gradient flows to it only, never to the table."""
 
     @staticmethod
-    def forward(ctx, emb, vals, fields, F: int, k: int):
-        ctx.save_for_backward(emb, vals, fields)
-        ctx.F, ctx.k = F, k
-        return ffm_triangle(emb, vals, fields, F, k)
+    def forward(ctx, emb_leaf, table, ids, vals, fields, F: int, k: int,
+                spec: tables.TableSpec):
+        ctx.save_for_backward(table, ids, vals, fields)
+        ctx.F, ctx.k, ctx.spec = F, k, spec
+        return ffm_fused(table, ids, vals, fields, F, k, spec)
 
     @staticmethod
     def backward(ctx, g_out):
-        emb, vals, fields = ctx.saved_tensors
-        d_emb = ffm_triangle_bwd(g_out.contiguous(), emb, vals, fields,
-                                 ctx.F, ctx.k)
-        return d_emb, None, None, None, None
+        table, ids, vals, fields = ctx.saved_tensors
+        d_emb = ffm_fused_bwd(g_out.contiguous(), table, ids, vals, fields,
+                              ctx.F, ctx.k, ctx.spec)
+        return d_emb, None, None, None, None, None, None, None

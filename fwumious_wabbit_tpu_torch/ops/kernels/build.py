@@ -32,8 +32,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C entry points of csrc/*.cu and their argument types
 _SIGNATURES = {
-    "fwt_ffm_triangle": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "fwt_ffm_triangle_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fwt_ffm_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "fwt_ffm_fused_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "fwt_ffm_fused_warp_lanes": [_I, _I, _I],
     "fwt_sparse_adagrad_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _F, _F, _P],
 }

@@ -13,9 +13,13 @@ fwumious_wabbit_tpu/persistence/model_file.py, byte for byte the same format
     NN layers: [(in+1)·out] f32 neuron-major weights then biases, then acc
                of the same length; the final readout neuron last.
 
-The header helpers, the NN layer reader and the f16 quantization are the
-JAX package's own (they never touch jax). ``immutable=True`` loads the
-weights only and converts the configuration to SGD — the inference layout.
+The header half (``MAGIC``, ``VERSION``, ``_read_chunk``,
+``_read_header_fh``, ``read_header``) and the NN layer reader
+``_nn_layer_from_bytes`` are copies of the JAX package's
+(fwumious_wabbit_tpu/persistence/model_file.py), and the f16 quantization
+is the port's copy of its ``quantization.py``, so files stay byte-identical
+in both directions. ``immutable=True`` loads the weights only and converts
+the configuration to SGD — the inference layout.
 """
 
 from __future__ import annotations
@@ -27,23 +31,63 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from fwumious_wabbit_tpu.config.model_instance import ModelInstance, Optimizer
-from fwumious_wabbit_tpu.config.vwmap import VwNamespaceMap
-from fwumious_wabbit_tpu.persistence import quantization
-from fwumious_wabbit_tpu.persistence.model_file import (
-    MAGIC,
-    VERSION,
-    _nn_layer_from_bytes,
-    _read_header_fh,
-)
-
+from ..config.model_instance import ModelInstance, Optimizer
+from ..config.vwmap import VwNamespaceMap
 from ..models.model import FwModel
 from ..utils.device import resolve_device
+from . import quantization
+
+MAGIC = b"FWRE"
+VERSION = 6
 
 
 def _write_chunk(fh, data: bytes) -> None:
     fh.write(struct.pack("<Q", len(data)))
     fh.write(data)
+
+
+def _read_chunk(fh) -> bytes:
+    (n,) = struct.unpack("<Q", fh.read(8))
+    return fh.read(n)
+
+
+def _read_header_fh(fh):
+    """Magic/version check + the two embedded config JSONs; leaves ``fh``
+    positioned at the weights total."""
+    magic = fh.read(4)
+    if magic != MAGIC:
+        raise ValueError("Model file does not begin with magic bytes FWRE")
+    (version,) = struct.unpack("<I", fh.read(4))
+    if version != VERSION:
+        raise ValueError(
+            f"Model file version of this binary: {VERSION}, version of the file: {version}"
+        )
+    vw = VwNamespaceMap.from_source_json(_read_chunk(fh).decode())
+    mi = ModelInstance.from_json(_read_chunk(fh).decode())
+    return mi, vw
+
+
+def read_header(path: str | Path):
+    """Read only the embedded (vwmap, model-instance) configs, no weights
+    (the native-engine daemon needs the namespace map for parse-error
+    replies without loading the device model)."""
+    with open(path, "rb") as fh:
+        return _read_header_fh(fh)
+
+
+def _nn_layer_from_bytes(fh, fan_in: int, fan_out: int, with_state: bool,
+                         load_state: bool) -> dict:
+    n = (fan_in + 1) * fan_out
+    flat = np.frombuffer(fh.read(4 * n), np.float32)
+    w = flat[: fan_in * fan_out].reshape(fan_out, fan_in).T.copy()
+    b = flat[fan_in * fan_out :].copy()
+    layer = {"w": w, "b": b}
+    if with_state:
+        acc = np.frombuffer(fh.read(4 * n), np.float32)
+        if load_state:
+            layer["w_acc"] = acc[: fan_in * fan_out].reshape(fan_out, fan_in).T.copy()
+            layer["b_acc"] = acc[fan_in * fan_out :].copy()
+    return layer
 
 
 def _host(t: torch.Tensor) -> np.ndarray:

@@ -18,9 +18,9 @@ from pathlib import Path
 
 import numpy as np
 
-from fwumious_wabbit_tpu.config.cmdline import build_parser
-from fwumious_wabbit_tpu.config.model_instance import ModelInstance, Optimizer
-from fwumious_wabbit_tpu.config.vwmap import VwNamespaceMap
+from .config.cmdline import build_parser
+from .config.model_instance import ModelInstance, Optimizer
+from .config.vwmap import VwNamespaceMap
 
 NAMESPACE_MAP = "vw_namespace_map.csv"
 

@@ -13,10 +13,12 @@ fwumious_wabbit_tpu/train/loop.py, for the modes ported so far:
 
 Any other mode exits non-zero with "not yet ported": training a dense
 tower (``--nn``), the record cache (``-c``), convert, sharding. The flag
-vocabulary is the JAX package's (config/cmdline.py). Every mode runs on the
-CUDA card; the CPU only with ``--fwt_platform cpu``. ``--fwt_serve_engine``
-keeps its meaning, except that ``auto`` means the device engine here:
-``native`` (the embedded C++ engine) must be asked for. The trainer reads
+vocabulary is the JAX package's (the port's copy in config/cmdline.py).
+Every mode runs on the CUDA card; the CPU only with ``--fwt_platform cpu``.
+``--fwt_serve_engine`` keeps its meaning, except that ``auto`` means the
+device engine here: ``native`` (the port's copy of the embedded C++ engine,
+native/) must be asked for, and fails rather than falls back when it
+cannot be built. The trainer reads
 text through the Python parser, the JAX loop's ``--fwt_no_native`` path;
 ``--fwt_pallas_update`` is accepted and ignored (on a CUDA tensor the
 sparse update kernel always runs).
@@ -30,12 +32,9 @@ import time
 
 import numpy as np
 
-from fwumious_wabbit_tpu.config.cmdline import build_parser
-from fwumious_wabbit_tpu.config.model_instance import ModelInstance
-from fwumious_wabbit_tpu.config.vwmap import VwNamespaceMap
-from fwumious_wabbit_tpu.train.predict import PredictionWriter
-from fwumious_wabbit_tpu.utils.logging import get_logger
-
+from ..config.cmdline import build_parser
+from ..config.model_instance import ModelInstance
+from ..config.vwmap import VwNamespaceMap
 from ..ingest import (
     Batcher,
     FeatureTranslator,
@@ -45,6 +44,8 @@ from ..ingest import (
     create_buffered_input,
 )
 from ..utils.device import NoDeviceError, resolve_device
+from ..utils.logging import get_logger
+from .predict import PredictionWriter
 
 log = get_logger(__name__)
 
@@ -224,11 +225,11 @@ def main(argv=None) -> int:
             _daemonize()
     elif engine == "native" and args.testonly and args.initial_regressor:
         # -t -i on the embedded C++ engine, asked for explicitly
-        from fwumious_wabbit_tpu.train.predict import run_native_predict
+        from .predict import run_native_predict
 
         try:
             run_native_predict(args)
-        except (FlushCommand, HogwildLoadCommand) as e:
+        except (FlushCommand, HogwildLoadCommand, RuntimeError) as e:
             log.error("Global error: %s", e)
             return 1
         return 0
@@ -238,9 +239,7 @@ def main(argv=None) -> int:
     from ..serve.server import Serving
 
     if args.daemon and engine == "native":
-        from fwumious_wabbit_tpu.persistence.model_file import read_header
-
-        mi, vw = read_header(args.initial_regressor)
+        mi, vw = model_file.read_header(args.initial_regressor)
         Serving(args, mi, vw, None, model_path=args.initial_regressor).serve()
         return 0
 

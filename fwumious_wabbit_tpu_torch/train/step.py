@@ -8,7 +8,7 @@ import numpy as np
 import torch
 
 from ..models.model import FwModel, predict_prob
-from ..ops import tables
+from ..ops import ffm, tables
 
 # the Batch arrays the forward pass reads
 INPUT_KEYS = ("lr_ids", "lr_vals", "lr_combos", "ffm_ids", "ffm_vals",
@@ -56,14 +56,17 @@ def make_predict_step(model: FwModel):
 
 
 def gather(model: FwModel, bd: dict) -> list:
-    """The gathered weights ``[lr_wg [B, L], emb [B, N, F·k]?]``, detached
-    leaves that require grad: the backward is taken with respect to them
-    (``jax.vjp`` with respect to ``lr_wg, emb``). A table itself never
-    requires grad, which would make autograd allocate a dense gradient of
-    it."""
+    """The leaves the backward is taken with respect to (``jax.vjp`` with
+    respect to ``lr_wg, emb``): the gathered LR weights ``lr_wg [B, L]``,
+    detached, and for FFM a stride-0 leaf of the slabs' shape ``[B, N,
+    F·k]`` (ops/ffm.slab_leaf) — the fused FFM kernels read the slabs from
+    the table themselves, and the leaf's gradient is ``d emb``. A table
+    itself never requires grad, which would make autograd allocate a dense
+    gradient of it."""
     leaves = [model.gather_lr(bd).detach().requires_grad_(True)]
     if model.has_ffm:
-        leaves.append(model.gather_ffm(bd).detach().requires_grad_(True))
+        leaves.append(ffm.slab_leaf(bd["ffm_ids"], model.num_fields,
+                                    model.ffm_k))
     return leaves
 
 
@@ -75,7 +78,7 @@ def forward(model: FwModel, bd: dict, leaves: list):
     with torch.enable_grad():
         parts = [model.lr_outputs(leaves[0], bd)]
         if model.has_ffm:
-            parts.append(model.ffm_outputs(leaves[1], bd))
+            parts.append(model.ffm_outputs(bd, leaves[1]))
         x = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
         logit = x.sum(-1)
     lg = logit.detach()

@@ -1,40 +1,28 @@
-"""The port's FFM triangle (fwumious_wabbit_tpu_torch/ops/ffm.py) against the
-JAX package: the Pallas kernel in interpret mode and the XLA path
-(FwModel.triangle ∘ ffm_outputs), on the Pallas test grid plus the serving
-shape, with both padding forms (field −1, and field 0 with value 0). The
-CUDA kernel itself is checked against the plain version on the card, in
-tests/test_torch_ffm_cuda.py."""
+"""The port's fused FFM entry (fwumious_wabbit_tpu_torch/ops/ffm.py: the slab
+gather and the triangle, and their gradient) against the JAX package on the
+same tables: the JAX gather (ops/tables.py) followed by the Pallas kernel
+in interpret mode and by the XLA path (FwModel.triangle ∘ ffm_outputs), and
+jax.vjp of the latter. Both slab layouts (one row, three rows), both
+padding forms (field −1, and field 0 with value 0), duplicate ids. On the
+CPU the entry runs its plain version; the CUDA kernels are checked against
+it on the card, in tests/test_torch_ffm_cuda.py."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from fwumious_wabbit_tpu.config.model_instance import ModelInstance, Optimizer
 from fwumious_wabbit_tpu.models.model import FwModel
+from fwumious_wabbit_tpu.ops import tables as jt
 from fwumious_wabbit_tpu.ops.pallas.ffm import ffm_triangle as jax_ffm_triangle
 from fwumious_wabbit_tpu_torch.ops import ffm
 
-# (F, k, N, B): tests/test_pallas_ffm.py's grid + the serving shape
-SHAPES = [(4, 4, 6, 8), (16, 8, 12, 16), (3, 2, 5, 4), (2, 8, 8, 256)]
+from ffm_cases import PADDINGS, SHAPES, ffm_case, padded
 
-
-def make_inputs(F, k, N, B, padding):
-    rng = np.random.default_rng(F * 100 + k + (7 if padding == "val0" else 0))
-    # embedding weights at a trained model's scale (the FFM init draws
-    # (U-0.5)/sqrt(k)/50); at unit scale the diagonal's cancellation leaves
-    # f32 noise of ~1e-5 in JAX and the port alike, against a float64 truth
-    emb = rng.normal(scale=0.1, size=(B, N, F * k)).astype(np.float32)
-    vals = rng.uniform(0.5, 2, (B, N)).astype(np.float32)
-    fields = rng.integers(0, F, (B, N)).astype(np.int32)
-    pad = rng.random((B, N)) < 0.3
-    if padding == "minus1":
-        fields[pad] = -1
-    else:  # what Batcher emits: field 0, value 0.0
-        fields[pad] = 0
-        vals[pad] = 0.0
-    return emb, vals, fields
+PALLAS_SHAPES = SHAPES[:4]  # the interpreter is slow at F=40
 
 
 def jax_model(F, k):
@@ -47,97 +35,126 @@ def jax_model(F, k):
     return FwModel(mi)
 
 
-@pytest.mark.parametrize("padding", ["minus1", "val0"])
+def jax_slabs(table, ids, spec):
+    """The JAX package's gather of the same ids from the same table."""
+    jspec = jt.make_spec(spec.logical_size, spec.slab)
+    assert (jspec.align, jspec.rows_per_slab, jspec.padded_size) == (
+        spec.align, spec.rows_per_slab, spec.padded_size)
+    return jt.gather(jnp.asarray(table), jnp.asarray(ids), jspec)[0]
+
+
+def port_inputs(table, ids, vals, fields):
+    return tuple(torch.from_numpy(a) for a in (table, ids, vals, fields))
+
+
+@pytest.mark.parametrize("padding", PADDINGS)
 @pytest.mark.parametrize("F,k,N,B", SHAPES)
 def test_plain_matches_jax(F, k, N, B, padding):
-    emb, vals, fields = make_inputs(F, k, N, B, padding)
+    table, ids, vals, fields, spec = ffm_case(F, k, N, B, padding)
+    emb = jax_slabs(table, ids, spec)
     model = jax_model(F, k)
     batch = {"ffm_vals": jnp.asarray(vals), "ffm_fields": jnp.asarray(fields)}
-    xla = np.asarray(model.triangle(model.ffm_outputs(jnp.asarray(emb), batch)))
-    pallas = np.asarray(jax_ffm_triangle(
-        jnp.asarray(emb), jnp.asarray(vals), jnp.asarray(fields),
-        F=F, k=k, tile=min(B, 256), interpret=True))
-    got = ffm.ffm_triangle(torch.from_numpy(emb), torch.from_numpy(vals),
-                           torch.from_numpy(fields), F, k)
+    xla = np.asarray(model.triangle(model.ffm_outputs(emb, batch)))
+    got = ffm.ffm_fused(*port_inputs(table, ids, vals, fields), F, k, spec)
     assert got.shape == (B, F * (F + 1) // 2) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), xla, rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(got.numpy(), pallas, rtol=1e-5, atol=1e-6)
+    if (F, k, N, B) in PALLAS_SHAPES:
+        pallas = np.asarray(jax_ffm_triangle(
+            emb, jnp.asarray(vals), jnp.asarray(fields),
+            F=F, k=k, tile=min(B, 256), interpret=True))
+        np.testing.assert_allclose(got.numpy(), pallas, rtol=1e-5, atol=1e-6)
 
 
 def test_cpu_tensors_do_not_launch():
-    emb, vals, fields = make_inputs(2, 8, 8, 4, "minus1")
+    table, ids, vals, fields, spec = ffm_case(2, 8, 8, 4)
     before = ffm.LAUNCHES
-    ffm.ffm_triangle(torch.from_numpy(emb), torch.from_numpy(vals),
-                     torch.from_numpy(fields), 2, 8)
+    ffm.ffm_fused(*port_inputs(table, ids, vals, fields), 2, 8, spec)
     assert ffm.LAUNCHES == before
 
 
 # -- the gradient ------------------------------------------------------------------
 
 
-def jax_grad(emb, vals, fields, g, F, k):
-    """jax.vjp of the JAX model's triangle(ffm_outputs(emb)) at ``g``."""
-    import jax
-
+def jax_grad(table, ids, vals, fields, spec, g, F, k):
+    """jax.vjp of the JAX model's triangle(ffm_outputs(emb)) at ``g``, emb
+    the JAX gather of the ids."""
     model = jax_model(F, k)
     batch = {"ffm_vals": jnp.asarray(vals), "ffm_fields": jnp.asarray(fields)}
     _, vjp = jax.vjp(lambda e: model.triangle(model.ffm_outputs(e, batch)),
-                     jnp.asarray(emb))
+                     jax_slabs(table, ids, spec))
     return np.asarray(vjp(jnp.asarray(g))[0])
 
 
-def port_grad(emb, vals, fields, g, F, k):
-    e = torch.from_numpy(emb).requires_grad_(True)
-    out = ffm.FfmTriangle.apply(e, torch.from_numpy(vals),
-                                torch.from_numpy(fields), F, k)
-    (d,) = torch.autograd.grad(out, e, torch.from_numpy(g))
+def port_grad(table, ids, vals, fields, spec, g, F, k):
+    """``d emb`` through FfmFused: the gradient its stride-0 leaf gets."""
+    t, i, v, f = port_inputs(table, ids, vals, fields)
+    leaf = ffm.slab_leaf(i, F, k)
+    assert leaf.stride() == (0, 0, 0) and leaf.requires_grad
+    out = ffm.FfmFused.apply(leaf, t, i, v, f, F, k, spec)
+    (d,) = torch.autograd.grad(out, leaf, torch.from_numpy(g))
+    assert d.shape == (ids.shape[0], ids.shape[1], F * k)
     return d.numpy()
 
 
-@pytest.mark.parametrize("padding", ["minus1", "val0"])
+@pytest.mark.parametrize("padding", PADDINGS)
 @pytest.mark.parametrize("F,k,N,B", SHAPES)
 def test_gradient_matches_jax_vjp(F, k, N, B, padding):
     """rtol 1e-5, atol 1e-6: the same sums in other orders; padded
     positions get exactly 0."""
-    emb, vals, fields = make_inputs(F, k, N, B, padding)
+    table, ids, vals, fields, spec = ffm_case(F, k, N, B, padding)
     g = np.random.default_rng(B + N).normal(
         size=(B, F * (F + 1) // 2)).astype(np.float32)
-    got = port_grad(emb, vals, fields, g, F, k)
-    np.testing.assert_allclose(got, jax_grad(emb, vals, fields, g, F, k),
-                               rtol=1e-5, atol=1e-6)
-    pad = (fields < 0) | (vals == 0.0)
-    assert not got[pad].any()
+    got = port_grad(table, ids, vals, fields, spec, g, F, k)
+    np.testing.assert_allclose(
+        got, jax_grad(table, ids, vals, fields, spec, g, F, k),
+        rtol=1e-5, atol=1e-6)
+    assert not got[padded(vals, fields, F)].any()
 
 
 def test_gradient_with_a_missing_field():
     """No position of field 2: the slab every position keeps for field 2
     gets 0 (it meets no partner there), the other slabs their gradient."""
     F, k, N, B = 4, 4, 6, 8
-    emb, vals, fields = make_inputs(F, k, N, B, "minus1")
+    table, ids, vals, fields, spec = ffm_case(F, k, N, B, "minus1")
     fields[fields == 2] = 1
     g = np.random.default_rng(3).normal(size=(B, F * (F + 1) // 2)).astype(np.float32)
-    got = port_grad(emb, vals, fields, g, F, k)
-    np.testing.assert_allclose(got, jax_grad(emb, vals, fields, g, F, k),
-                               rtol=1e-5, atol=1e-6)
+    got = port_grad(table, ids, vals, fields, spec, g, F, k)
+    np.testing.assert_allclose(
+        got, jax_grad(table, ids, vals, fields, spec, g, F, k),
+        rtol=1e-5, atol=1e-6)
     per_slab = got.reshape(B, N, F, k)
     assert not per_slab[:, :, 2].any()
     assert per_slab[:, :, [0, 1, 3]][fields >= 0].any()
 
 
 def test_cpu_gradient_does_not_launch():
-    emb, vals, fields = make_inputs(2, 8, 8, 4, "minus1")
+    table, ids, vals, fields, spec = ffm_case(2, 8, 8, 4)
     g = np.ones((4, 3), np.float32)
     before = ffm.BWD_LAUNCHES
-    port_grad(emb, vals, fields, g, 2, 8)
+    port_grad(table, ids, vals, fields, spec, g, 2, 8)
     assert ffm.BWD_LAUNCHES == before
 
 
 def test_shared_memory_size_check():
-    """The kernels take up to 227 KB of shared memory per example: F=40,
-    k=8 (51,360 bytes, over the old 48 KB) fits, F=64, k=64 does not."""
+    """The kernels' shared-memory path takes up to 227 KB per example:
+    F=40, k=8 (51,360 bytes, over the old 48 KB) fits, F=64, k=64 does
+    not."""
     assert ffm.shared_memory_bytes(40, 8) == (40 * 40 * 8 + 40) * 4
     assert ffm.shared_memory_bytes(40, 8, backward=True) == (40 * 40 * 8 + 1600) * 4
     with pytest.raises(ValueError, match="227 KB"):
         ffm.shared_memory_bytes(64, 64)
     with pytest.raises(ValueError, match="227 KB"):
         ffm.shared_memory_bytes(64, 64, backward=True)
+
+
+@pytest.mark.parametrize("F,k", [(2, 8), (40, 8), (16, 8)])
+def test_slab_mask_is_the_gather_rule(F, k):
+    """``id & slab_mask`` is the first flat float tables.gather reads, in
+    both layouts."""
+    table, ids, vals, fields, spec = ffm_case(F, k, 6, 4)
+    flat = table.reshape(-1)
+    base = ids.astype(np.int64) & ffm.slab_mask(spec)
+    want = np.stack([flat[b:b + F * k] for b in base.reshape(-1)])
+    got = ffm.tables.gather(torch.from_numpy(table), torch.from_numpy(ids), spec)
+    np.testing.assert_array_equal(got.numpy().reshape(-1, F * k), want)
+    assert (spec.rows_per_slab > 1) == (F * k > 128)

@@ -1,5 +1,9 @@
-"""The CUDA FFM triangle kernels (fwumious_wabbit_tpu_torch/csrc/ffm_triangle.cu),
-forward and backward, against their plain PyTorch versions, on the card. Skips without one: a CUDA
+"""The fused CUDA FFM kernels (fwumious_wabbit_tpu_torch/csrc/ffm_triangle.cu),
+forward and backward, against their plain PyTorch versions (tables.gather,
+then the triangle and its autograd), on the card: every shape of
+tests/ffm_cases.py (one-row and three-row slabs), both padding forms,
+duplicate ids, the warp path with 16-byte and with 4-byte loads and the
+shared-memory path; reruns bit-identical. Skips without a card: a CUDA
 kernel has no CPU mode. This file imports no jax, so it also runs on a
 machine without it:
 
@@ -11,11 +15,9 @@ import pytest
 import torch
 
 from fwumious_wabbit_tpu_torch.ops import ffm
+from fwumious_wabbit_tpu_torch.ops.kernels import build
 
-# (F, k, N, B): the serving shape + tests/test_pallas_ffm.py's grid + a
-# model whose contra tensor needs more than 48 KB of shared memory
-SHAPES = [(2, 8, 8, 256), (4, 4, 6, 8), (16, 8, 12, 16), (3, 2, 5, 4),
-          (40, 8, 48, 8)]
+from ffm_cases import SHAPES, ffm_case, padded
 
 
 @pytest.fixture
@@ -27,60 +29,74 @@ def cuda():
     return torch.device("cuda:0")
 
 
-def inputs(F, k, N, B, device):
-    rng = np.random.default_rng(F * 1000 + k * 100 + N)
-    emb = rng.normal(scale=0.1, size=(B, N, F * k)).astype(np.float32)
-    vals = rng.uniform(0.5, 2, (B, N)).astype(np.float32)
-    fields = rng.integers(0, F, (B, N)).astype(np.int32)
-    pad = rng.random((B, N))
-    fields[pad < 0.15] = -1  # the kernel's padding
-    fields[(pad >= 0.15) & (pad < 0.3)] = 0  # Batcher's: field 0, value 0
-    vals[(pad >= 0.15) & (pad < 0.3)] = 0.0
-    return tuple(torch.from_numpy(a).to(device) for a in (emb, vals, fields))
+def inputs(F, k, N, B, device, aligned=True):
+    """The case on the card; ``aligned=False`` puts the table 4 bytes off a
+    16-byte boundary, so the kernels take 4-byte loads."""
+    table, ids, vals, fields, spec = ffm_case(F, k, N, B, "both", seed=1)
+    t = torch.from_numpy(table).to(device)
+    if not aligned:
+        buf = torch.empty(t.numel() + 1, device=device)
+        buf[1:] = t.reshape(-1)
+        t = buf[1:].view(t.shape)
+        assert t.is_contiguous() and t.data_ptr() % 16 == 4
+    rest = tuple(torch.from_numpy(a).to(device) for a in (ids, vals, fields))
+    return (t, *rest), spec
+
+
+def within(got, ref) -> bool:
+    return (got - ref).abs().max().item() <= 1e-5 * (1 + ref.abs().max().item())
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False], ids=["vec16", "vec4"])
 @pytest.mark.parametrize("F,k,N,B", SHAPES)
-def test_kernel_matches_plain(cuda, F, k, N, B):
-    emb, vals, fields = inputs(F, k, N, B, cuda)
+def test_kernel_matches_plain(cuda, F, k, N, B, aligned):
+    args, spec = inputs(F, k, N, B, cuda, aligned)
     before = ffm.LAUNCHES
-    got = ffm.ffm_triangle(emb, vals, fields, F, k)
+    got = ffm.ffm_fused(*args, F, k, spec)
     torch.cuda.synchronize()
     assert ffm.LAUNCHES == before + 1
-    ref = ffm.ffm_triangle_reference(emb, vals, fields, F, k)
+    ref = ffm.ffm_fused_reference(*args, F, k, spec)
     assert got.shape == ref.shape == (B, F * (F + 1) // 2)
-    err = (got - ref).abs().max().item()
-    assert err <= 1e-5 * (1 + ref.abs().max().item())
+    assert bool(torch.isfinite(got).all()) and within(got, ref)
 
 
 @pytest.mark.cuda
 def test_kernel_is_deterministic(cuda):
-    emb, vals, fields = inputs(16, 8, 12, 16, cuda)
-    a = ffm.ffm_triangle(emb, vals, fields, 16, 8)
-    b = ffm.ffm_triangle(emb, vals, fields, 16, 8)
-    assert torch.equal(a, b)
+    for shape in ((16, 8, 12, 16), (2, 8, 8, 256), (40, 8, 48, 8)):
+        args, spec = inputs(*shape, cuda)
+        a = ffm.ffm_fused(*args, *shape[:2], spec)
+        b = ffm.ffm_fused(*args, *shape[:2], spec)
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
-    emb, vals, fields = inputs(2, 8, 8, 4, cuda)
+    (table, ids, vals, fields), spec = inputs(2, 8, 8, 4, cuda)
     with pytest.raises(TypeError):
-        ffm.ffm_triangle(emb, vals, fields.long(), 2, 8)
+        ffm.ffm_fused(table, ids.long(), vals, fields, 2, 8, spec)
+    with pytest.raises(TypeError):
+        ffm.ffm_fused(table, ids, vals, fields.long(), 2, 8, spec)
     with pytest.raises(ValueError):
-        ffm.ffm_triangle(emb.transpose(0, 1), vals, fields, 2, 8)
-    big = torch.zeros((1, 1, 64 * 64), device=cuda)
+        ffm.ffm_fused(table, ids.t(), vals, fields, 2, 8, spec)
+    with pytest.raises(ValueError):
+        ffm.ffm_fused(table[:-1], ids, vals, fields, 2, 8, spec)
+    with pytest.raises(ValueError, match="slab"):
+        ffm.ffm_fused(table, ids, vals, fields, 2, 4, spec)
+    big = ffm.tables.make_spec(1 << 12, 64 * 64)
+    bt = torch.zeros((big.num_rows, 128), device=cuda)
+    one = (ids[:1, :1].contiguous(), vals[:1, :1].contiguous(),
+           fields[:1, :1].contiguous())
     with pytest.raises(ValueError, match="227 KB"):
-        ffm.ffm_triangle(big, vals[:1, :1].contiguous(),
-                         fields[:1, :1].contiguous(), 64, 64)
-    g = torch.zeros((1, 64 * 65 // 2), device=cuda)
+        ffm.ffm_fused(bt, *one, 64, 64, big)
     with pytest.raises(ValueError, match="227 KB"):
-        ffm.ffm_triangle_bwd(g, big, vals[:1, :1].contiguous(),
-                             fields[:1, :1].contiguous(), 64, 64)
+        ffm.ffm_fused_bwd(torch.zeros((1, 64 * 65 // 2), device=cuda), bt, *one,
+                          64, 64, big)
     g = torch.zeros((4, 3), device=cuda)
     with pytest.raises(ValueError):
-        ffm.ffm_triangle_bwd(g[:, :2], emb, vals, fields, 2, 8)
+        ffm.ffm_fused_bwd(g[:, :2], table, ids, vals, fields, 2, 8, spec)
     with pytest.raises(ValueError):
-        ffm.ffm_triangle_bwd(g.t().contiguous().t(), emb, vals, fields, 2, 8)
+        ffm.ffm_fused_bwd(g.t().contiguous().t(), table, ids, vals, fields, 2, 8, spec)
 
 
 def upstream(F, B, device):
@@ -90,39 +106,48 @@ def upstream(F, B, device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False], ids=["vec16", "vec4"])
 @pytest.mark.parametrize("F,k,N,B", SHAPES)
-def test_backward_kernel_matches_plain(cuda, F, k, N, B):
-    emb, vals, fields = inputs(F, k, N, B, cuda)
+def test_backward_kernel_matches_plain(cuda, F, k, N, B, aligned):
+    args, spec = inputs(F, k, N, B, cuda, aligned)
     g = upstream(F, B, cuda)
     before = ffm.BWD_LAUNCHES
-    got = ffm.ffm_triangle_bwd(g, emb, vals, fields, F, k)
+    got = ffm.ffm_fused_bwd(g, *args, F, k, spec)
     torch.cuda.synchronize()
     assert ffm.BWD_LAUNCHES == before + 1
-    ref = ffm.ffm_triangle_bwd_reference(g, emb, vals, fields, F, k)
-    assert got.shape == ref.shape == emb.shape
-    err = (got - ref).abs().max().item()
-    assert err <= 1e-5 * (1 + ref.abs().max().item())
-    pad = ((fields < 0) | (fields >= F) | (vals == 0))
-    assert torch.count_nonzero(got[pad]) == 0
+    ref = ffm.ffm_fused_bwd_reference(g, *args, F, k, spec)
+    assert got.shape == ref.shape == (B, N, F * k)
+    assert bool(torch.isfinite(got).all()) and within(got, ref)
+    pad = torch.from_numpy(padded(args[2].cpu().numpy(), args[3].cpu().numpy(), F))
+    assert torch.count_nonzero(got[pad.to(cuda)]) == 0
 
 
 @pytest.mark.cuda
 def test_backward_kernel_is_deterministic(cuda):
-    emb, vals, fields = inputs(16, 8, 12, 16, cuda)
-    g = upstream(16, 16, cuda)
-    a = ffm.ffm_triangle_bwd(g, emb, vals, fields, 16, 8)
-    b = ffm.ffm_triangle_bwd(g, emb, vals, fields, 16, 8)
-    assert torch.equal(a, b)
+    for shape in ((16, 8, 12, 16), (2, 8, 8, 1024), (40, 8, 48, 8)):
+        args, spec = inputs(*shape, cuda)
+        g = upstream(shape[0], shape[3], cuda)
+        a = ffm.ffm_fused_bwd(g, *args, *shape[:2], spec)
+        b = ffm.ffm_fused_bwd(g, *args, *shape[:2], spec)
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
 def test_autograd_function_runs_both_kernels(cuda):
-    emb, vals, fields = inputs(2, 8, 8, 256, cuda)
+    args, spec = inputs(2, 8, 8, 256, cuda)
     g = upstream(2, 256, cuda)
-    e = emb.clone().requires_grad_(True)
+    leaf = ffm.slab_leaf(args[1], 2, 8)
     fwd, bwd = ffm.LAUNCHES, ffm.BWD_LAUNCHES
-    out = ffm.FfmTriangle.apply(e, vals, fields, 2, 8)
-    (d,) = torch.autograd.grad(out, e, g)
+    out = ffm.FfmFused.apply(leaf, *args, 2, 8, spec)
+    (d,) = torch.autograd.grad(out, leaf, g)
     assert (ffm.LAUNCHES, ffm.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
-    ref = ffm.ffm_triangle_bwd_reference(g, emb, vals, fields, 2, 8)
-    assert (d - ref).abs().max().item() <= 1e-5 * (1 + ref.abs().max().item())
+    assert within(d, ffm.ffm_fused_bwd_reference(g, *args, 2, 8, spec))
+
+
+@pytest.mark.cuda
+def test_each_shape_takes_its_path(cuda):
+    """The warp path for the small contra tensors (16-byte loads where the
+    table allows), the shared-memory path for F=16 and F=40."""
+    lanes = build.load("ffm_triangle").fwt_ffm_fused_warp_lanes
+    assert [lanes(F, k, 1) for F, k, _, _ in SHAPES] == [16, 0, 32, 8, 0]
+    assert [lanes(F, k, 0) for F, k, _, _ in SHAPES] == [0, 0, 32, 32, 0]

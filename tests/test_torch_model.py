@@ -20,15 +20,18 @@ from torch_parity import (
     jax_params,
     make_mi,
     make_vw,
+    port_config,
     port_model,
     vw_lines,
 )
 
 
-def assert_predictions_match(vw, mi, params, lines=None):
+def assert_predictions_match(vw, mi, pmi, params, lines=None):
+    """``mi`` the JAX package's configuration, ``pmi`` the port's of the
+    same argv; the batches are the JAX pipeline's numpy arrays."""
     jmodel = JaxModel(mi)
     jstep = jax_predict_step(jmodel)
-    step = make_predict_step(port_model(mi, params))
+    step = make_predict_step(port_model(pmi, params))
     n = 0
     for b in batches(vw, mi, lines or vw_lines(40, seed=5)):
         want = np.asarray(jstep(params, _batch_dict(b)))
@@ -41,7 +44,8 @@ def assert_predictions_match(vw, mi, params, lines=None):
 def test_lr_only(tmp_path):
     vw = make_vw(tmp_path)
     mi = make_mi(vw)
-    assert_predictions_match(vw, mi, jax_params(JaxModel(mi), seed=1))
+    _, pmi = port_config(tmp_path)
+    assert_predictions_match(vw, mi, pmi, jax_params(JaxModel(mi), seed=1))
 
 
 def test_lr_ffm_after_train_steps(tmp_path):
@@ -49,21 +53,22 @@ def test_lr_ffm_after_train_steps(tmp_path):
     mi = make_mi(vw, FFM_ARGV)
     params = jax_params(JaxModel(mi), seed=2, train_lines=vw_lines(24, seed=9),
                         vw=vw)
-    assert_predictions_match(vw, mi, params)
+    assert_predictions_match(vw, mi, port_config(tmp_path, FFM_ARGV)[1], params)
 
 
 @pytest.mark.parametrize("layernorm", ["before", "after"])
 @pytest.mark.parametrize("topology", ["one", "two", "four", "five"])
 def test_lr_ffm_nn(tmp_path, topology, layernorm):
     vw = make_vw(tmp_path)
-    mi = make_mi(vw, FFM_ARGV + [
+    argv = FFM_ARGV + [
         "--nn_layers", "2", "--nn_topology", topology,
         "--nn", "0:width:6", "--nn", "0:activation:relu",
         "--nn", f"0:layernorm:{layernorm}",
-        "--nn", "1:width:4", "--nn", "1:init:xavier"])
+        "--nn", "1:width:4", "--nn", "1:init:xavier"]
+    mi = make_mi(vw, argv)
     params = jax_params(JaxModel(mi), seed=3, train_lines=vw_lines(16, seed=4),
                         vw=vw)
-    assert_predictions_match(vw, mi, params)
+    assert_predictions_match(vw, mi, port_config(tmp_path, argv)[1], params)
 
 
 def test_predict_prob_clamps_and_maps_nan():

@@ -13,27 +13,43 @@ from fwumious_wabbit_tpu.models.model import FwModel as JaxModel
 from fwumious_wabbit_tpu.persistence import model_file as jmf
 from fwumious_wabbit_tpu_torch.persistence import model_file as pmf
 
-from torch_parity import FFM_ARGV, jax_params, make_mi, make_vw, port_model, vw_lines
+from torch_parity import (
+    FFM_ARGV,
+    config_fields,
+    jax_params,
+    make_mi,
+    make_vw,
+    port_config,
+    port_model,
+    vw_lines,
+)
 
 MODES = ["with_state", "immutable", "f16"]
 
 
 def make_case(tmp_path, mode):
+    """``(vw, mi, params, pvw, pmi)``: the JAX package's configuration and
+    parameters, and the port's own configuration of the same argv."""
     vw = make_vw(tmp_path)
-    mi = make_mi(vw, FFM_ARGV + ["--nn_layers", "1", "--nn", "0:width:5",
-                                 "--nn", "0:activation:relu"])
+    argv = FFM_ARGV + ["--nn_layers", "1", "--nn", "0:width:5",
+                       "--nn", "0:activation:relu"]
+    mi = make_mi(vw, argv)
     params = jax_params(JaxModel(mi), seed=7, train_lines=vw_lines(16, seed=8),
                         vw=vw)
+    overrides = {}
     if mode != "with_state":  # the inference layout: weights only, SGD
         mi.optimizer = Optimizer.SGD
+        overrides["optimizer"] = "SGD"
         params = {k: v for k, v in params.items() if not k.endswith("_acc")}
         params["nn"] = [{k: v for k, v in l.items() if not k.endswith("_acc")}
                         for l in params["nn"]]
         params["final"] = {k: v for k, v in params["final"].items()
                            if not k.endswith("_acc")}
     if mode == "f16":
-        mi.dequantize_weights = True
-    return vw, mi, params
+        mi.dequantize_weights = overrides["dequantize_weights"] = True
+    pvw, pmi = port_config(tmp_path, argv, **overrides)
+    assert config_fields(pmi) == config_fields(mi)
+    return vw, mi, params, pvw, pmi
 
 
 def flat_params(params) -> dict:
@@ -58,7 +74,7 @@ def assert_same(a: dict, b: dict):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_jax_file_loads_into_port(tmp_path, mode):
-    vw, mi, params = make_case(tmp_path, mode)
+    vw, mi, params, _, _ = make_case(tmp_path, mode)
     path = tmp_path / "jax.fwt"
     jmf.save_model(path, mi, vw, JaxModel(mi), params,
                    quantize_weights=mode == "f16")
@@ -72,11 +88,12 @@ def test_jax_file_loads_into_port(tmp_path, mode):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_port_file_loads_into_jax(tmp_path, mode):
-    vw, mi, params = make_case(tmp_path, mode)
+    vw, mi, params, pvw, pmi = make_case(tmp_path, mode)
     quantize = mode == "f16"
     jpath, ppath = tmp_path / "jax.fwt", tmp_path / "port.fwt"
     jmf.save_model(jpath, mi, vw, JaxModel(mi), params, quantize_weights=quantize)
-    pmf.save_model(ppath, mi, vw, port_model(mi, params), quantize_weights=quantize)
+    pmf.save_model(ppath, pmi, pvw, port_model(pmi, params),
+                   quantize_weights=quantize)
     assert ppath.read_bytes() == jpath.read_bytes()
     immutable = mode != "with_state"
     _, _, _, got = jmf.load_model(ppath, immutable=immutable)

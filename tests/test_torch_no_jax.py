@@ -1,8 +1,10 @@
-"""The port never imports jax: in a fresh interpreter where importing jax or
-jaxlib fails, every module of fwumious_wabbit_tpu_torch imports, a CPU
-predict runs from a model file the port itself writes, and a short CPU
-training through the CLI writes predictions and a model file with optimizer
-state."""
+"""The port stands alone: in a fresh interpreter where importing jax, jaxlib
+or the JAX package fwumious_wabbit_tpu fails, every module of
+fwumious_wabbit_tpu_torch imports, a CPU predict runs from a model file the
+port itself writes, on the device engine and on the port's own build of the
+embedded C++ engine (``--fwt_serve_engine native``) with equal predictions,
+and a short CPU training through the CLI writes predictions and a model
+file with optimizer state."""
 
 import subprocess
 import sys
@@ -14,10 +16,12 @@ REPO = Path(__file__).resolve().parents[1]
 SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys
 
+    BLOCKED = ("jax", "jaxlib", "fwumious_wabbit_tpu")
+
     class BlockJax:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib"):
-                raise ImportError("jax is blocked: " + name)
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked: " + name)
             return None
 
     sys.meta_path.insert(0, BlockJax())
@@ -29,9 +33,9 @@ SCRIPT = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
 
-    from fwumious_wabbit_tpu.config.cmdline import build_parser
-    from fwumious_wabbit_tpu.config.model_instance import ModelInstance, Optimizer
-    from fwumious_wabbit_tpu.config.vwmap import VwNamespaceMap
+    from fwumious_wabbit_tpu_torch.config.cmdline import build_parser
+    from fwumious_wabbit_tpu_torch.config.model_instance import ModelInstance, Optimizer
+    from fwumious_wabbit_tpu_torch.config.vwmap import VwNamespaceMap
     from fwumious_wabbit_tpu_torch.convert import params_from_numpy
     from fwumious_wabbit_tpu_torch.models.model import FwModel
     from fwumious_wabbit_tpu_torch.persistence.model_file import save_model
@@ -55,6 +59,13 @@ SCRIPT = textwrap.dedent("""
                  "-p", tmp + "/p.out", "--fwt_platform", "cpu"]) == 0
     preds = [float(x) for x in open(tmp + "/p.out").read().split()]
     assert len(preds) == 2 and all(0.0 < p < 1.0 for p in preds), preds
+    assert main(["-t", "-i", tmp + "/m.fwt", "--data", tmp + "/d.vw",
+                 "-p", tmp + "/n.out", "--fwt_serve_engine", "native"]) == 0
+    native = [float(x) for x in open(tmp + "/n.out").read().split()]
+    assert len(native) == 2 and all(abs(a - b) <= 2e-6
+                                    for a, b in zip(native, preds)), native
+    from fwumious_wabbit_tpu_torch import native as port_native
+    assert "fwumious_wabbit_tpu_torch/build/" in str(port_native.library_path())
     open(tmp + "/t.vw", "w").write("1 |A a |B b\\n-1 |A c |B d e\\n" * 4)
     assert main(["--data", tmp + "/t.vw", "--keep", "A", "--keep", "B",
                  "-b", "10", "--ffm_k", "4", "--ffm_bit_precision", "10",
@@ -67,7 +78,7 @@ SCRIPT = textwrap.dedent("""
     from fwumious_wabbit_tpu_torch.persistence.model_file import load_model
     _, _, trained = load_model(tmp + "/t.fwt", device="cpu")
     assert trained.has_state and float(trained.lr_acc.abs().sum()) > 0
-    assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+    assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("imported", len(names), "modules")
 """)
 

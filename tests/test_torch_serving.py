@@ -10,10 +10,12 @@ import threading
 import numpy as np
 import pytest
 
-from fwumious_wabbit_tpu.config.cmdline import build_parser
+from fwumious_wabbit_tpu.config.cmdline import build_parser as jax_build_parser
 from fwumious_wabbit_tpu.models.model import FwModel as JaxModel
 from fwumious_wabbit_tpu.persistence import model_file as jmf
 from fwumious_wabbit_tpu.serve import server as jserver
+from fwumious_wabbit_tpu_torch import native
+from fwumious_wabbit_tpu_torch.config.cmdline import build_parser
 from fwumious_wabbit_tpu_torch.persistence import model_file as pmf
 from fwumious_wabbit_tpu_torch.serve.server import Serving
 
@@ -35,8 +37,10 @@ def save_jax_model(tmp_path, name, trained: bool):
     return path
 
 
-def args_for(engine="device", num_children=4):
-    args = build_parser().parse_args(["--daemon", "--port", "0"])
+def args_for(engine="device", num_children=4, parser=build_parser):
+    """Daemon flags parsed by the port's CLI parser (``parser``: the JAX
+    package's, for its own daemon)."""
+    args = parser().parse_args(["--daemon", "--port", "0"])
     args.fwt_serve_engine = engine
     args.num_children = num_children
     return args
@@ -61,7 +65,8 @@ def serve(tmp_path):
 def jax_device_port(path):
     """The JAX package's daemon with its device engine, on the same file."""
     mi, vw, model, params = jmf.load_model(path, immutable=True)
-    srv = jserver.Serving(args_for(), mi, vw, model, params)
+    srv = jserver.Serving(args_for(parser=jax_build_parser), mi, vw, model,
+                          params)
     s = jserver._PooledTCPServer(("127.0.0.1", 0), jserver._Handler, 2)
     s.fwt_serving = srv
     srv._server = s
@@ -190,8 +195,6 @@ def test_engine_selection(tmp_path, engine):
     path = save_jax_model(tmp_path, "m.fwt", trained=True)
     mi, vw, model = pmf.load_model(path, immutable=True, device="cpu")
     if engine == "native":
-        from fwumious_wabbit_tpu import native
-
         if native.load() is None:
             pytest.skip("the embedded C++ engine does not build here")
     srv = Serving(args_for(engine), mi, vw, model, model_path=str(path))

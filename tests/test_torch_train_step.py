@@ -17,7 +17,16 @@ from fwumious_wabbit_tpu_torch.models.model import FwModel
 from fwumious_wabbit_tpu_torch.train.loop import np_counts
 from fwumious_wabbit_tpu_torch.train.step import make_train_step
 
-from torch_parity import FFM_ARGV, batches, make_mi, make_vw, to_numpy, vw_lines
+from torch_parity import (
+    FFM_ARGV,
+    batches,
+    config_fields,
+    make_mi,
+    make_vw,
+    port_config,
+    to_numpy,
+    vw_lines,
+)
 
 TABLES = ("lr_w", "lr_acc", "ffm_w", "ffm_acc")
 
@@ -32,12 +41,16 @@ CONFIGS = {
 
 
 def build(tmp_path, name):
+    """``(vw, mi, pmi, counts)``: the JAX package's configuration and the
+    port's own, from the same argv and optimizer."""
     extra, optimizer, counts = CONFIGS[name]
     vw = make_vw(tmp_path)
     mi = make_mi(vw, FFM_ARGV + extra)
     if optimizer is not None:
         mi.optimizer = optimizer
-    return vw, mi, counts
+    _, pmi = port_config(tmp_path, FFM_ARGV + extra, optimizer=mi.optimizer.name)
+    assert config_fields(pmi) == config_fields(mi)
+    return vw, mi, pmi, counts
 
 
 def with_counts(bd, batch, model):
@@ -53,10 +66,10 @@ def with_counts(bd, batch, model):
 @pytest.mark.parametrize("batch_size", [1, 32])
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_trajectory_matches_jax(tmp_path, name, batch_size):
-    vw, mi, counts = build(tmp_path, name)
+    vw, mi, pmi, counts = build(tmp_path, name)
     jmodel = JaxModel(mi)
     jparams = jmodel.init_params()
-    model = FwModel(mi)
+    model = FwModel(pmi)
     model.load_params(params_from_numpy(to_numpy(jparams), model, "cpu"))
     assert model.opt_lr.batch_mean == jmodel.opt_lr.batch_mean
     assert model.opt_ffm.batch_mean == jmodel.opt_ffm.batch_mean
@@ -80,17 +93,17 @@ def test_trajectory_matches_jax(tmp_path, name, batch_size):
 
 @pytest.mark.parametrize("name", ["lut_p0_counts", "flex", "sgd"])
 def test_init_params_match_jax(tmp_path, name):
-    _, mi, _ = build(tmp_path, name)
+    _, mi, pmi, _ = build(tmp_path, name)
     want = to_numpy(JaxModel(mi).init_params())
-    got = FwModel(mi).init_params("cpu")
+    got = FwModel(pmi).init_params("cpu")
     assert set(got) == set(want)
     for key, value in got.items():
         np.testing.assert_array_equal(value.numpy(), want[key], err_msg=key)
 
 
 def test_step_updates_in_place_and_tables_never_require_grad(tmp_path):
-    vw, mi, _ = build(tmp_path, "lut_p05")
-    model = FwModel(mi)
+    vw, mi, pmi, _ = build(tmp_path, "lut_p05")
+    model = FwModel(pmi)
     model.load_params(model.init_params("cpu"))
     tables = {k: getattr(model, k) for k in TABLES}
     before = {k: t.clone() for k, t in tables.items()}
@@ -104,9 +117,9 @@ def test_step_updates_in_place_and_tables_never_require_grad(tmp_path):
 
 
 def test_tower_training_is_refused(tmp_path):
-    vw = make_vw(tmp_path)
-    mi = make_mi(vw, FFM_ARGV + ["--nn_layers", "1", "--nn", "0:width:4"])
-    model = FwModel(mi)
+    make_vw(tmp_path)
+    _, pmi = port_config(tmp_path, FFM_ARGV + ["--nn_layers", "1", "--nn", "0:width:4"])
+    model = FwModel(pmi)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         make_train_step(model)
     with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -1,8 +1,13 @@
 """Shared set-up for the parity tests of the PyTorch port (tests/test_torch_*):
 small models built with the JAX package, VW lines made from a numpy seed,
-and the helpers that carry parameters and batches across."""
+and the helpers that carry parameters and batches across. The port gets its
+own configuration objects, built from the same namespace map and argv
+(:func:`port_config`); what crosses between the packages is files and
+numpy arrays."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -15,6 +20,9 @@ from fwumious_wabbit_tpu.ingest.parser import VowpalParser
 from fwumious_wabbit_tpu.ingest.translator import Batcher, FeatureTranslator
 from fwumious_wabbit_tpu.models.model import FwModel as JaxModel
 from fwumious_wabbit_tpu.train.loop import _batch_dict
+from fwumious_wabbit_tpu_torch.config import cmdline as port_cmdline
+from fwumious_wabbit_tpu_torch.config import model_instance as port_mi
+from fwumious_wabbit_tpu_torch.config import vwmap as port_vwmap
 from fwumious_wabbit_tpu_torch.convert import params_from_numpy
 from fwumious_wabbit_tpu_torch.models.model import FwModel
 
@@ -33,6 +41,26 @@ def make_vw(tmp_path) -> VwNamespaceMap:
 def make_mi(vw, extra=()) -> ModelInstance:
     return ModelInstance.from_cmdline(
         build_parser().parse_args(BASE_ARGV + list(extra)), vw)
+
+
+def port_config(tmp_path, extra=(), **overrides):
+    """The port's own ``(vw, mi)`` from the namespace map :func:`make_vw`
+    wrote and the argv :func:`make_mi` takes; ``overrides`` set fields
+    afterwards (an optimizer by its name, e.g. ``optimizer="SGD"``)."""
+    vw = port_vwmap.VwNamespaceMap.from_dataset_dir(str(tmp_path / "d.vw"))
+    mi = port_mi.ModelInstance.from_cmdline(
+        port_cmdline.build_parser().parse_args(BASE_ARGV + list(extra)), vw)
+    for name, value in overrides.items():
+        if name == "optimizer":
+            value = port_mi.Optimizer[value]
+        setattr(mi, name, value)
+    return vw, mi
+
+
+def config_fields(obj) -> dict:
+    """A config object's fields, nested dataclasses as dicts: equal for the
+    two packages' objects of one configuration (their enums are ints)."""
+    return dataclasses.asdict(obj)
 
 
 def vw_lines(n: int, seed: int = 0) -> list[bytes]:
@@ -80,5 +108,6 @@ def to_numpy(params):
 
 
 def port_model(mi, params, device="cpu") -> FwModel:
+    """The port's model of the port's ``mi`` with the JAX ``params``."""
     model = FwModel(mi)
     return model.load_params(params_from_numpy(to_numpy(params), model, device))
