@@ -54,9 +54,33 @@ Phases, each raising on failure (exit code 1, and no result line):
 7. training at full width through the CLI: the same configuration with its
    AdaGrad state (``synthetic.training_config``: AdagradLUT, power_t 0, the
    batch-mean cap), the 10k-line file at ``--fwt_batch_size 1024`` (10
-   steps), with ``-p`` and ``-f --save_resume``, on the card and again with
-   ``--fwt_platform cpu``: the predictions within 1e-5 per line, the four
-   tables of the two model files within 1e-5·(1+max|cpu|);
+   steps), with ``-p`` and ``-f --save_resume``. First the Python-ingest
+   path (``--fwt_no_native``) on the card and again with ``--fwt_platform
+   cpu``: the predictions within 1e-5 per line, the four tables of the two
+   model files within 1e-5·(1+max|cpu|). Then the default path (the C++
+   ingest, K=8 packed superbatches, bitpack and vocab auto, the pinned
+   transfer stage) on the card: against the ``--fwt_no_native`` card run,
+   predictions within one unit of the -p file's sixth decimal and tables
+   within 1e-5·(1+max|·|), with whether both are bit-identical; and against
+   itself with ``--fwt_platform cpu`` within the bounds above;
+7b. bench.py's "text-train 1M" row: the 1,000,000-line Eat-Rate file
+   (``synthetic.ensure_dataset``, seed 1; its generation timed) trained
+   through the CLI with ``-p`` on the default path six times — as is,
+   ``--fwt_vocab off``, ``--fwt_bitpack off --fwt_vocab off``, and as is
+   again, so the default's two runs bracket the others; then with
+   ``--fwt_pack_cache on`` twice, recording the producer's stream and
+   replaying it, each within one unit of the -p file's sixth decimal of
+   the first default run — with the ex/s of the CLI's Elapsed line, the
+   in-run counters (FWT_COUNTERS_OUT: producer busy/stall, transfer
+   busy/starve, consumer starve, dispatch, fetch wait, CPU per thread) and
+   the kernels' launches per step; then a torch.profiler window of 8
+   packed superbatches (64 steps) of the default layout on a fresh model:
+   wall, device busy, device kernels and the idle share per step, and
+   unpack_row's device kernels per superbatch; then the three kernels
+   against their plain versions at one packed step's own inputs (B=1024,
+   the C++ ingest's widths, combos in the LR ids, the cached ones for the
+   FFM values) within the bounds of phases 4 and 5, each timed beside
+   plain, with its bytes and bound;
 8. the fused FFM kernels at the main path's inputs (the serving model's
    table, the data's first 256 and 1024 lines as the CLI batches them):
    wall time per call from CUDA events and device time per call from
@@ -67,14 +91,17 @@ Phases, each raising on failure (exit code 1, and no result line):
    256-line batch) and of one full-width train step (with the kernels'
    launches per step).
 
-Each main path (6 and 7) runs with the kernels' launch counters set to 0
-just before it and read just after: the FFM forward must have launched in
-both, the FFM backward and the sparse update in training. The script prints
-the kernel table as JSON (each kernel's launches, error, times, bound,
-launches per serving batch and per train step; no single PyTorch call
-computes any of the three, so library_ms is null), the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``. It needs one card
-and no network.
+Each main path (6, the two training paths of 7, and each 1M run of 7b)
+runs with the kernels' launch counters set to 0 just before it and read
+just after: the FFM forward must have launched in serving, all three
+kernels in each training path. The script prints the kernel table as JSON
+(each kernel's launches, error, times, bound, launches per serving batch;
+per train step from the 10k --fwt_no_native run and per packed train
+step from the first 1M default run, both main paths; its launches on the
+10k default path; and its error, times, bytes and bound at the default
+path's step, ``default_path_step``; no single PyTorch call computes any of
+the three, so library_ms is null), the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``. It needs one card and no network.
 """
 
 from __future__ import annotations
@@ -96,6 +123,8 @@ REPLY_ATOL = 2e-6  # tests/test_serving.py:176
 BWD_SHAPES = KERNEL_SHAPES + [(2, 8, 8, 1024), (40, 8, 48, 8)]
 TRAIN_BATCH = 1024
 TRAIN_ATOL = 1e-5  # card vs CPU: f32 sums in other orders (PERF.md)
+# one unit of the -p file's sixth decimal, and the float error of reading it
+PRED_UNIT = 1e-6 * (1 + 1e-6)
 
 
 class SmokeError(RuntimeError):
@@ -926,23 +955,25 @@ class ElapsedLog:
         raise SmokeError("the CLI logged no Elapsed line")
 
 
-def train_cli(data: Path, tag: str, extra=()) -> tuple:
-    """One training run through the port's CLI: (predictions, model path,
-    ex/s from the CLI's log)."""
+def train_cli(data: Path, tag: str, extra=(), save: bool = True) -> tuple:
+    """One training run through the port's CLI: (predictions, model path or
+    None, ex/s from the CLI's log)."""
     import numpy as np
 
     from fwumious_wabbit_tpu_torch import synthetic
     from fwumious_wabbit_tpu_torch.train.loop import main
 
     out = data.with_name(f"chip_smoke_train_{tag}.out")
-    fwt = data.with_name(f"chip_smoke_train_{tag}.fwt")
+    fwt = data.with_name(f"chip_smoke_train_{tag}.fwt") if save else None
     argv = synthetic.serving_argv() + [
         "--data", str(data), "--fwt_batch_size", str(TRAIN_BATCH),
-        "-p", str(out), "-f", str(fwt), "--save_resume", *extra]
+        "-p", str(out), *extra]
+    if save:
+        argv += ["-f", str(fwt), "--save_resume"]
     with ElapsedLog() as el:
         rc = main(argv)
     check(rc == 0, f"training ({tag}) exited {rc}")
-    return np.array([float(x) for x in out.read_text().split()]), fwt, el.ex_per_s()
+    return np.array(out.read_bytes().split(), np.float64), fwt, el.ex_per_s()
 
 
 def logloss(preds, data: Path) -> float:
@@ -954,46 +985,292 @@ def logloss(preds, data: Path) -> float:
     return float(-np.mean(np.where(y, np.log(p), np.log(1 - p))))
 
 
-def training_phase(data: Path) -> dict:
-    """Train on the card (counters read around it), then with
-    --fwt_platform cpu; compare predictions and the four tables."""
+def launch_counts() -> dict:
     from fwumious_wabbit_tpu_torch.ops import ffm, sparse_update
-    from fwumious_wabbit_tpu_torch.persistence.model_file import load_model
+
+    return {"ffm_triangle": ffm.LAUNCHES, "ffm_triangle_bwd": ffm.BWD_LAUNCHES,
+            "sparse_adagrad_update": sparse_update.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    from fwumious_wabbit_tpu_torch.ops import ffm, sparse_update
 
     ffm.LAUNCHES = ffm.BWD_LAUNCHES = sparse_update.LAUNCHES = 0
-    preds, fwt, ex_s = train_cli(data, "gpu")  # the main path
-    launches = {"ffm_triangle": ffm.LAUNCHES,
-                "ffm_triangle_bwd": ffm.BWD_LAUNCHES,
-                "sparse_adagrad_update": sparse_update.LAUNCHES}
-    print(f"kernel launches on the training path: {json.dumps(launches)}",
-          flush=True)
+
+
+def trained_path(data: Path, tag: str, extra=()) -> dict:
+    """One full-width training run through the CLI on the card, a main path:
+    the launch counts set to 0 just before it and read just after, each
+    kernel launched at least once."""
+    reset_launch_counts()
+    preds, fwt, ex_s = train_cli(data, tag, extra)
+    launches = launch_counts()
+    print(f"kernel launches on the training path ({tag}): "
+          f"{json.dumps(launches)}", flush=True)
     for name, n in launches.items():
-        check(n > 0, f"the training path never launched the {name} kernel")
-    cpu_preds, cpu_fwt, cpu_ex_s = train_cli(data, "cpu", ["--fwt_platform", "cpu"])
+        check(n > 0, f"the training path ({tag}) never launched the {name} kernel")
     n_lines = len(data.read_bytes().splitlines())
-    check(preds.shape == cpu_preds.shape == (n_lines,),
-          f"training wrote {preds.shape} and {cpu_preds.shape} predictions "
-          f"for {n_lines} lines")
-    pred_err = float(abs(preds - cpu_preds).max())
-    print(f"training predictions: {n_lines} lines, max |card − CPU| = "
-          f"{pred_err!r} (bound {TRAIN_ATOL})", flush=True)
-    check(pred_err <= TRAIN_ATOL, f"training predictions differ: {pred_err}")
-    _, _, gpu_model = load_model(fwt, device="cpu")
-    _, _, cpu_model = load_model(cpu_fwt, device="cpu")
-    table_err = {}
+    check(preds.shape == (n_lines,) and bool(valid_preds(preds)),
+          f"training ({tag}) wrote {preds.shape} predictions for {n_lines} lines")
+    return {"preds": preds, "fwt": fwt, "ex_s": ex_s, "launches": launches}
+
+
+def valid_preds(a) -> bool:
+    """Finite probabilities (as the -p file rounds them, 0 and 1 included)."""
+    import numpy as np
+
+    return bool(np.isfinite(a).all() and ((a >= 0) & (a <= 1)).all())
+
+
+def compare_runs(what: str, got: dict, want: dict, pred_bound: float) -> dict:
+    """Predictions within ``pred_bound`` per line and the four tables of the
+    two model files within 1e-5·(1+max|want|); whether both are bit for bit
+    equal."""
+    from fwumious_wabbit_tpu_torch.persistence.model_file import load_model
+
+    pred_err = float(abs(got["preds"] - want["preds"]).max())
+    check(pred_err <= pred_bound, f"{what}: predictions differ by {pred_err} "
+                                  f"> {pred_bound}")
+    _, _, a_model = load_model(got["fwt"], device="cpu")
+    _, _, b_model = load_model(want["fwt"], device="cpu")
+    table_err, identical = {}, got["fwt"].read_bytes() == want["fwt"].read_bytes()
     for key in ("lr_w", "lr_acc", "ffm_w", "ffm_acc"):
-        a, b = getattr(gpu_model, key), getattr(cpu_model, key)
+        a, b = getattr(a_model, key), getattr(b_model, key)
         err = (a - b).abs().max().item()
         bound = TRAIN_ATOL * (1.0 + b.abs().max().item())
         table_err[key] = err
-        print(f"training table {key}: max |card − CPU| = {err!r} (bound "
-              f"{bound!r})", flush=True)
-        check(err <= bound, f"trained table {key} differs: {err} > {bound}")
-    ll = logloss(preds, data)
-    print(f"training progressive logloss over {n_lines} lines: card {ll!r}, "
-          f"CPU {logloss(cpu_preds, data)!r}", flush=True)
-    return {"launches": launches, "ex_s": ex_s, "cpu_ex_s": cpu_ex_s,
-            "pred_err": pred_err, "table_err": table_err, "logloss": ll}
+        check(err <= bound, f"{what}: table {key} differs by {err} > {bound}")
+    identical = identical and bool((got["preds"] == want["preds"]).all())
+    print(f"{what}: {got['preds'].size} predictions, max |diff| = {pred_err!r} "
+          f"(bound {pred_bound!r}); tables max |diff| {json.dumps(table_err)} "
+          f"(bound 1e-5·(1+max|·|)); predictions and model files bit-identical: "
+          f"{identical}", flush=True)
+    return {"pred_err": pred_err, "table_err": table_err, "identical": identical}
+
+
+def training_phase(data: Path) -> dict:
+    """The Python-ingest training path (--fwt_no_native) on the card, then
+    the same with --fwt_platform cpu; predictions and the four tables
+    compared."""
+    gpu = trained_path(data, "python_gpu", ["--fwt_no_native"])
+    cpu_preds, cpu_fwt, cpu_ex_s = train_cli(
+        data, "python_cpu", ["--fwt_no_native", "--fwt_platform", "cpu"])
+    cmp = compare_runs("training --fwt_no_native, card vs CPU", gpu,
+                       {"preds": cpu_preds, "fwt": cpu_fwt}, TRAIN_ATOL)
+    ll = logloss(gpu["preds"], data)
+    print(f"training progressive logloss over {gpu['preds'].size} lines: "
+          f"card {ll!r}, CPU {logloss(cpu_preds, data)!r}", flush=True)
+    return {**gpu, "cpu_ex_s": cpu_ex_s, "logloss": ll, **cmp}
+
+
+def native_training_phase(data: Path, python_gpu: dict) -> dict:
+    """The default training path — C++ ingest, K=8 packed superbatches,
+    bitpack and vocab auto, the pinned transfer stage — on the card (a main
+    path), against the --fwt_no_native run on the card (predictions within
+    one unit of the -p file's sixth decimal, tables within
+    1e-5·(1+max|·|)) and against itself with --fwt_platform cpu (the
+    Python-ingest phase's bounds)."""
+    gpu = trained_path(data, "native_gpu")
+    vs_python = compare_runs("training, default path vs --fwt_no_native on the card",
+                             gpu, python_gpu, PRED_UNIT)
+    cpu_preds, cpu_fwt, cpu_ex_s = train_cli(data, "native_cpu",
+                                             ["--fwt_platform", "cpu"])
+    vs_cpu = compare_runs("training, default path, card vs CPU", gpu,
+                          {"preds": cpu_preds, "fwt": cpu_fwt}, TRAIN_ATOL)
+    return {**gpu, "cpu_ex_s": cpu_ex_s, "vs_python": vs_python,
+            "vs_cpu": vs_cpu, "logloss": logloss(gpu["preds"], data)}
+
+
+# the default first and last, so its two runs bracket the three settings;
+# then the pack cache recorded and replayed (--fwt_pack_cache on)
+MILLION_RUNS = {"default": [], "vocab_off": ["--fwt_vocab", "off"],
+                "bitpack_off_vocab_off": ["--fwt_bitpack", "off", "--fwt_vocab", "off"],
+                "default_again": [],
+                "pack_cache_record": ["--fwt_pack_cache", "on"],
+                "pack_cache_replay": ["--fwt_pack_cache", "on"]}
+
+
+def million_phase(directory: Path, n_lines: int = 1_000_000) -> dict:
+    """bench.py's "text-train 1M" row on the default path: the 1,000,000-line
+    Eat-Rate file (synthetic.ensure_dataset, seed 1; its generation timed),
+    trained through the CLI with -p on the card — the default, --fwt_vocab
+    off, --fwt_bitpack off --fwt_vocab off, the default again, then with
+    --fwt_pack_cache on twice: the first run records the producer's stream
+    (no cache file before it), the second replays it (its log says so) —
+    each a main path, with its ex/s from the CLI's Elapsed line, its in-run
+    counters (FWT_COUNTERS_OUT) and the kernels' launches per train step.
+    The two pack-cache runs' predictions within one unit of the -p file's
+    sixth decimal of the first default run's, with whether they are
+    bit-identical."""
+    from fwumious_wabbit_tpu_torch import synthetic
+    from fwumious_wabbit_tpu_torch.train import pack_cache
+
+    t0 = time.perf_counter()
+    big = synthetic.ensure_dataset(directory, n_lines)
+    gen_s = time.perf_counter() - t0
+    print(f"dataset: {n_lines:,} Eat-Rate lines ({big.stat().st_size} bytes) "
+          f"ready in {gen_s:.2f} s", flush=True)
+    out = {"gen_s": gen_s, "path": big, "runs": {}}
+    counters_path = directory / "chip_smoke_counters.json"
+    fwpack = Path(pack_cache.pack_cache_path_for(big))
+    fwpack.unlink(missing_ok=True)
+    for name, extra in MILLION_RUNS.items():
+        os.environ["FWT_COUNTERS_OUT"] = str(counters_path)
+        reset_launch_counts()
+        try:
+            with ElapsedLog() as el:
+                preds, _, ex_s = train_cli(big, f"1m_{name}", extra, save=False)
+        finally:
+            del os.environ["FWT_COUNTERS_OUT"]
+        launches = launch_counts()
+        replayed = any("using pack cache" in r for r in el.records)
+        check(replayed == (name == "pack_cache_replay"),
+              f"1M run {name}: replayed a pack cache: {replayed}")
+        if name == "default":
+            default_preds = preds
+        elif name.startswith("pack_cache"):
+            check(fwpack.is_file(), f"1M run {name}: no pack cache at {fwpack}")
+            err = float(abs(preds - default_preds).max())
+            check(err <= PRED_UNIT, f"1M run {name}: predictions differ from "
+                                    f"the default run's by {err}")
+            print(f"1M run {name}: predictions max |diff| from the default "
+                  f"run's {err!r}, bit-identical: "
+                  f"{bool((preds == default_preds).all())}", flush=True)
+        for kernel, n in launches.items():
+            check(n > 0, f"1M run {name} never launched the {kernel} kernel")
+        res = json.loads(counters_path.read_text())
+        check(res["examples"] == n_lines and preds.shape == (n_lines,)
+              and valid_preds(preds), f"1M run {name}: {res['examples']} "
+                                      f"examples, {preds.shape} predictions")
+        steps = -(-n_lines // TRAIN_BATCH)
+        run = {"ex_s": ex_s, "elapsed_s": res["elapsed"],
+               "logloss": logloss(preds, big),
+               "launches_per_step": {k: v / steps for k, v in launches.items()},
+               "counters": res["counters"]}
+        out["runs"][name] = run
+        print(f"timing: train 1M lines ({name}: {' '.join(extra) or 'the default'}) "
+              f"at B={TRAIN_BATCH}: {ex_s:.0f} ex/s (CLI Elapsed line), "
+              f"logloss {run['logloss']:.6f}; kernel launches per step "
+              f"{json.dumps(run['launches_per_step'])}; in-run counters "
+              f"{json.dumps(res['counters'])}", flush=True)
+    return out
+
+
+def last_layout_groups(items: list, K: int, n: int) -> tuple:
+    """``(layout, groups, snapshot)`` of a producer's stream: the layout of
+    its last full superbatch, the last ``n`` full superbatches of that
+    layout, and the vocabulary snapshot in force for them — the last one
+    before the last of them (one layout's dictionaries only grow; a later
+    snapshot may belong to another layout)."""
+    full = [j for j, i in enumerate(items) if i[0] == "p" and i[1].shape[0] == K]
+    lay = items[full[-1]][2]
+    groups = [items[j] for j in full if items[j][2].signature == lay.signature]
+    snaps = [i[1] for i in items[:full[-1]] if i[0] == "v"]
+    return lay, groups[-n:], snaps[-1] if snaps else None
+
+
+def packed_step_profile(big: Path, device, n_groups: int = 8) -> tuple:
+    """A torch.profiler window of packed train steps at full width: the
+    producer packs the first 16·8·1024 lines of ``big`` as the CLI does
+    (K=8, B=1024, bitpack and vocab on), the superbatches of the last layout
+    go to the card through the transfer stage, and ``n_groups`` of them run
+    through make_packed_train_step (each 8 steps) on a fresh model. Per
+    step: wall (host clock, the card synchronized at the end; once without
+    and once under the profiler), device busy, device kernels and the idle
+    share in the profiled window; and unpack_row alone per superbatch (its
+    device kernels: the count a fused unpack kernel would replace). The
+    kernels' launches per step are the 1M default run's, not this
+    window's. Then the three kernels against their plain versions at one
+    packed step's own inputs (:func:`ffm_step_check`,
+    :func:`step_update_check`). Returns ``(profile, kernels)``."""
+    import numpy as np
+    import torch
+
+    from fwumious_wabbit_tpu_torch import synthetic
+    from fwumious_wabbit_tpu_torch.config.cmdline import build_parser
+    from fwumious_wabbit_tpu_torch.models.model import FwModel
+    from fwumious_wabbit_tpu_torch.train import packed
+    from fwumious_wabbit_tpu_torch.train.producer import (
+        SuperbatchProducer, Transferrer, arrived)
+
+    K = 8
+    head = big.with_name("chip_smoke_head.vw")
+    with open(big, "rb") as fh:
+        head.write_bytes(b"".join(fh.readline() for _ in range(16 * K * TRAIN_BATCH)))
+    mi, vw = synthetic.training_config(head)
+    model = FwModel(mi)
+    model.load_params(model.init_params(device))
+    keys = {"lr": 0, "ffm": (model.ffm_spec.align - 1).bit_length()}
+
+    class Sink(list):
+        put = list.append
+
+    sink, state = Sink(), packed.VocabTransferState()
+    SuperbatchProducer(
+        build_parser().parse_args(synthetic.serving_argv() + ["--data", str(head)]),
+        mi, vw, batch_size=TRAIN_BATCH, K=K, can_pack=True, count_keys=keys,
+        cut_at=None, holdout_after=None, out_queue=sink,
+        ctr={"producer_stall_s": 0.0},
+        xfer_stats={"starve_s": 0.0, "xfer_s": 0.0, "put_s": 0.0, "bytes": 0},
+        vocab_state=state).run()
+    state.close()
+    check(isinstance(sink[-1], type(None)), f"the producer failed: {sink[-1]!r}")
+    lay, groups, snap = last_layout_groups(sink[:-1], K, n_groups)
+    check(len(groups) >= 2, f"only {len(groups)} full superbatches of one layout")
+    tr = Transferrer(device)
+    (vocab,), ev = tr.stage([snap])
+    vocab = arrived(vocab, ev)
+    bufs = []
+    for g in groups:
+        (b,), ev = tr.stage([g[1]])
+        bufs.append(arrived(b, ev))
+    step = packed.make_packed_train_step(model, lay, K)
+    step(bufs[0], vocab).cpu()  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in bufs:  # alone in the process: no producer or writer thread
+        step(b, vocab)
+    torch.cuda.synchronize()
+    quiet = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for b in bufs:
+            step(b, vocab)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n_steps = len(bufs) * K
+    dev_total, n_kernels, rows = 0.0, 0, []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dt = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+        dev_total += dt
+        n_kernels += e.count
+        rows.append((round(dt / n_steps, 2), e.key[:60], e.count))
+    check(dev_total > 0, "the profiler saw no device time in the packed steps")
+    plan = packed._Plan(lay, device)
+    unpack = device_us(lambda: packed.unpack_row(bufs[0], lay, vocab, plan))
+    res = {"K": K, "superbatches": len(bufs), "words": lay.words,
+           "bytes_per_example": lay.words * 4 / TRAIN_BATCH,
+           "wall_us_per_step": quiet / n_steps * 1e6,
+           "profiled_wall_us_per_step": wall / n_steps * 1e6,
+           "device_busy_us_per_step": dev_total / n_steps,
+           "device_kernels_per_step": n_kernels / n_steps,
+           "device_idle_share": 1.0 - dev_total / (wall * 1e6),
+           "unpack_device_us_per_superbatch": unpack["device_us"],
+           "unpack_kernels_per_superbatch": unpack["kernels_per_call"],
+           "largest": sorted(rows, reverse=True)[:8]}
+    # the kernels at the default path's own inputs: the first step of the
+    # last superbatch, unpacked as the packed step unpacks it, on the model
+    # these superbatches trained
+    bd = {key: v[0] for key, v in packed.unpack_row(bufs[-1], lay, vocab, plan).items()}
+    what = "the default path's train step"
+    kernels = {"ffm": ffm_step_check(model, bd, what),
+               "update": step_update_check(model, bd, what)}
+    del model, bufs, bd
+    torch.cuda.empty_cache()
+    return res, kernels
 
 
 def train_batches(data: Path, device, n_b: int) -> tuple:
@@ -1031,23 +1308,34 @@ def train_batches(data: Path, device, n_b: int) -> tuple:
 
 def step_update_phase(data: Path, device) -> dict:
     """The sparse update kernel against apply_rows_plain at exactly the
-    inputs the train step gives it: after two full-width B=1024 steps, the
-    third step's LR and FFM ``(rid, grows)`` (lr_update_rows,
-    ffm_update_rows), applied to clones of the model's own tables. w and
-    acc within :func:`update_agrees`' bounds; acc besides within 1e-4 of plain
-    relative to each element (a sum of squares in another order), so a
-    wrong acc on small values cannot hide under the atol. Both versions
-    timed at those two shapes."""
-    import torch
-
-    from fwumious_wabbit_tpu_torch.ops import adagrad, sparse_update
+    inputs the Python-ingest train step gives it: after two full-width
+    B=1024 steps, the third step's (:func:`step_update_check`)."""
     from fwumious_wabbit_tpu_torch.train import step as st
 
     model, hb, _ = train_batches(data, device, 3)
     step = st.make_train_step(model)
     for b in hb[:2]:
         step(b)
-    bd = st.to_device(hb[2], st.TRAIN_KEYS, device)
+    out = step_update_check(model, st.to_device(hb[2], st.TRAIN_KEYS, device),
+                            "the Python path's train step")
+    del model
+    return out
+
+
+def step_update_check(model, bd: dict, what: str) -> dict:
+    """The sparse update kernel against apply_rows_plain at exactly the
+    inputs one train step gives it: the step's LR and FFM ``(rid, grows)``
+    (lr_update_rows, ffm_update_rows) from the batch ``bd`` on the card,
+    applied to clones of the model's own tables. w and acc within
+    :func:`update_agrees`' bounds; acc besides within 1e-4 of plain
+    relative to each element (a sum of squares in another order), so a
+    wrong acc on small values cannot hide under the atol. Both versions
+    timed at those two shapes, each with its bound."""
+    import torch
+
+    from fwumious_wabbit_tpu_torch.ops import adagrad, sparse_update
+    from fwumious_wabbit_tpu_torch.train import step as st
+
     leaves = st.gather(model, bd)
     logit, _, dlogit = st.forward(model, bd, leaves)
     grads = st.backward(logit, leaves, dlogit)
@@ -1076,17 +1364,17 @@ def step_update_phase(data: Path, device) -> dict:
         a_rel = ((a1 - a2).abs() / a2.abs()).nan_to_num(0.0).max().item()
         touched = int(torch.unique(rid[rid < w.shape[0]]).numel())
         changed = int((a2 != acc).any(dim=1).sum())
-        print(f"kernel sparse_adagrad_update at the train step's {name} "
+        print(f"kernel sparse_adagrad_update at {what}'s {name} "
               f"shape R={w.shape[0]} K={rid.shape[0]} ({touched} distinct "
               f"rows, {changed} with a non-zero gradient): max_abs_err w "
               f"{w_err!r}, acc {a_err!r}; max relative err acc {a_rel!r} "
               f"(rtol 1e-5, atol 1e-6; acc relative 1e-4; {n} weights of "
               f"cancelled sums within rtol 1e-5 of their terms)", flush=True)
-        check(changed > 0, f"the {name} step update changes no row: the "
-                           f"check would show nothing")
+        check(changed > 0, f"the {name} update of {what} changes no row: "
+                           f"the check would show nothing")
         ok = ok and bool(((a1 - a2).abs() <= 1e-4 * a2.abs()).all())
-        check(ok, f"sparse update kernel disagrees with plain at the train "
-                  f"step's {name} shape")
+        check(ok, f"sparse update kernel disagrees with plain at {what}'s "
+                  f"{name} shape")
         out["max_abs_err"] = max(out["max_abs_err"], w_err, a_err)
         # rid and the gradient rows read once, each touched row's w and acc
         # read and written once, the LUT read once; a sum and ~6 operations
@@ -1109,8 +1397,59 @@ def step_update_phase(data: Path, device) -> dict:
         out["ms"] += min(ms)
         out["plain_ms"] += min(plain_ms)
         del w1, a1, w2, a2
-    del model
     torch.cuda.empty_cache()
+    return out
+
+
+def ffm_step_check(model, bd: dict, what: str) -> dict:
+    """The fused FFM forward and backward against their plain versions at
+    the inputs one train step hands FfmFused (FwModel.ffm_outputs: the ids,
+    the values or the step's cached ones, the fields) over the model's own
+    table, with a gradient from a seed; bounds of :func:`agrees`, padded
+    positions of the gradient exactly 0. Per call: wall time from CUDA
+    events (plain, kernel, kernel, plain), device time from torch.profiler,
+    and the bound (:func:`ffm_work`)."""
+    import numpy as np
+    import torch
+
+    from fwumious_wabbit_tpu_torch.ops import ffm
+
+    ids = bd["ffm_ids"].to(torch.int32).contiguous()
+    vals = bd.get("ffm_vals")
+    vals = (torch.ones(ids.shape, device=ids.device) if vals is None
+            else vals).contiguous()
+    fields = bd["ffm_fields"].to(torch.int32).contiguous()
+    F, k, spec = model.num_fields, model.ffm_k, model.ffm_spec
+    args = (model.ffm_w, ids, vals, fields, F, k, spec)
+    B, N = ids.shape
+    g = torch.from_numpy(np.random.default_rng(SEED).normal(
+        size=(B, F * (F + 1) // 2)).astype(np.float32)).to(ids.device)
+    calls = {"fwd": (lambda: ffm.ffm_fused(*args),
+                     lambda: ffm.ffm_fused_reference(*args)),
+             "bwd": (lambda: ffm.ffm_fused_bwd(g, *args),
+                     lambda: ffm.ffm_fused_bwd_reference(g, *args))}
+    out = {"B": int(B), "N": int(N)}
+    for name, (kernel, plain) in calls.items():
+        got = kernel()
+        torch.cuda.synchronize()
+        ok, err, limit = agrees(got, plain())
+        check(ok, f"fused {name} disagrees with plain at {what}: {err} > {limit}")
+        if name == "bwd":
+            pad = (fields < 0) | (fields >= F) | (vals == 0)
+            check(int(torch.count_nonzero(got[pad])) == 0,
+                  f"fused backward moves padded positions at {what}")
+        ms, plain_ms = [], []
+        for order in ("plain", "kernel", "kernel", "plain"):
+            if order == "kernel":
+                ms.append(time_ms(kernel, reps=1000))
+            else:
+                plain_ms.append(time_ms(plain, reps=100))
+        out[name] = {"max_abs_err": err, "ms": min(ms), "plain_ms": min(plain_ms),
+                     "device_us": device_us(kernel)["device_us"],
+                     "plain_device_us": device_us(plain)["device_us"],
+                     "work": ffm_work(ids, vals, fields, F, k, spec, name == "bwd")}
+    print(f"kernel ffm_fused at {what} (B={B} N={N} F={F} k={k}, the model's "
+          f"own table): " + json.dumps(out), flush=True)
     return out
 
 
@@ -1121,7 +1460,6 @@ def train_breakdown(data: Path, device, n_b: int = 8) -> dict:
     torch.profiler."""
     import torch
 
-    from fwumious_wabbit_tpu_torch.ops import ffm, sparse_update
     from fwumious_wabbit_tpu_torch.train import step as st
 
     model, hb, t = train_batches(data, device, n_b)
@@ -1168,17 +1506,12 @@ def train_breakdown(data: Path, device, n_b: int = 8) -> dict:
 
     prof_rows = []
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    before = (ffm.LAUNCHES, ffm.BWD_LAUNCHES, sparse_update.LAUNCHES)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for b in hb:
             step(b)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    after = (ffm.LAUNCHES, ffm.BWD_LAUNCHES, sparse_update.LAUNCHES)
-    t["launches_per_step"] = dict(zip(
-        ("ffm_triangle", "ffm_triangle_bwd", "sparse_adagrad_update"),
-        ((a - b) / n_b for a, b in zip(after, before))))
     dev_total, n_kernels = 0.0, 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1206,7 +1539,13 @@ def step_bound(step_upd: dict) -> dict:
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, work,
-               device_us_per_call, per_batch, per_step) -> dict:
+               device_us_per_call, per_batch, per_step, per_packed_step,
+               default_path_launches, default_path) -> dict:
+    """One kernel's entry of the kernels line. ``ms``, ``plain_ms``,
+    ``bound_ms`` and ``device_us`` are at the shapes of the serving batch
+    (forward) or the --fwt_no_native train step; ``default_path`` holds the
+    same at one default-path train step's own inputs."""
+    work_d = default_path.pop("work")
     return {"name": name, "route": "cuda",
             "source": "fwumious_wabbit_tpu_torch/csrc/" + source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -1215,7 +1554,12 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, work,
             "bound_us": work["bound_ms"] * 1e3, "bytes": work["bytes"],
             "device_us": device_us_per_call,
             "launches_per_serving_batch": per_batch,
-            "launches_per_train_step": per_step}
+            "launches_per_train_step": per_step,
+            "launches_per_packed_train_step": per_packed_step,
+            "launches_on_the_default_training_path": default_path_launches,
+            "default_path_step": {**default_path, "bytes": work_d["bytes"],
+                                  "bound_ms": work_d["bound_ms"],
+                                  "bound_by": work_d["bound_by"]}}
 
 
 def main() -> int:
@@ -1284,7 +1628,10 @@ def main() -> int:
     print(f"ffm_fused kernel launches on the serving path: {launches}", flush=True)
     check(launches > 0, "the serving path never launched the fused FFM forward")
 
-    trn = training_phase(data)  # the training path; resets its counters
+    trn = training_phase(data)  # the Python-ingest training path
+    nat = native_training_phase(data, trn)  # the default training path
+    big = million_phase(data.parent)
+    prof, nkern = packed_step_profile(big["path"], device)
 
     timing = ffm_timing(paths[0], data, device)
     fwd256, t1024 = timing[256], timing[TRAIN_BATCH]
@@ -1321,7 +1668,7 @@ def main() -> int:
     print(f"  on {card}", flush=True)
     for name in ("lr", "ffm"):
         print(update_timing_line(
-            f"at the train step's {name.upper()} shape, B={TRAIN_BATCH} "
+            f"at the --fwt_no_native train step's {name.upper()} shape, B={TRAIN_BATCH} "
             f"K={step_upd[name + '_K']}", step_upd[name + "_ms"],
             step_upd[name + "_plain_ms"], step_upd[name + "_device"])
             + f"; bound {json.dumps(step_upd[name + '_bound'])}", flush=True)
@@ -1331,10 +1678,34 @@ def main() -> int:
           f"{step_upd['plain_ms'] * 1e3:.2f} us", flush=True)
     print(f"  on {card}", flush=True)
     print(f"timing: training through the CLI at B={TRAIN_BATCH}, 10k lines: "
-          f"{trn['ex_s']:.0f} ex/s on the card, {trn['cpu_ex_s']:.0f} ex/s "
-          f"with --fwt_platform cpu (CLI log, parse and translate included)",
-          flush=True)
+          f"--fwt_no_native {trn['ex_s']:.0f} ex/s on the card, "
+          f"{trn['cpu_ex_s']:.0f} ex/s with --fwt_platform cpu; the default "
+          f"path {nat['ex_s']:.0f} ex/s on the card, {nat['cpu_ex_s']:.0f} "
+          f"ex/s with --fwt_platform cpu (CLI log, ingest included)", flush=True)
     print(f"  on {card}", flush=True)
+    for name, run in big["runs"].items():
+        print(f"timing: train 1M lines, {name}: {run['ex_s']:.0f} ex/s",
+              flush=True)
+        print(f"  on {card}", flush=True)
+    print("timing: packed train steps at full width (K=8, B=1024, the default "
+          "path's layout), per step: " + json.dumps(prof), flush=True)
+    print(f"  on {card}", flush=True)
+    for name in ("fwd", "bwd"):
+        r = nkern["ffm"][name]
+        print(f"timing: fused FFM {name} at the default path's step (B="
+              f"{nkern['ffm']['B']} N={nkern['ffm']['N']}), per call: "
+              f"{r['ms'] * 1e3:.2f} us wall, {r['device_us']:.3f} us device "
+              f"(bound {r['work']['bound_ms'] * 1e3:.4f} us, "
+              f"{r['work']['bytes']} bytes); plain {r['plain_ms'] * 1e3:.2f} "
+              f"us wall, {r['plain_device_us']:.3f} us device", flush=True)
+        print(f"  on {card}", flush=True)
+    for name in ("lr", "ffm"):
+        print(update_timing_line(
+            f"at the default path's {name.upper()} shape, B={TRAIN_BATCH} "
+            f"K={nkern['update'][name + '_K']}", nkern["update"][name + "_ms"],
+            nkern["update"][name + "_plain_ms"], nkern["update"][name + "_device"])
+            + f"; bound {json.dumps(nkern['update'][name + '_bound'])}", flush=True)
+        print(f"  on {card}", flush=True)
     layers = layer_breakdown(paths[0], data.read_bytes().splitlines(True), device)
     print("timing: layers per 256-line batch: " + json.dumps(layers), flush=True)
     print(f"  on {card}", flush=True)
@@ -1346,30 +1717,49 @@ def main() -> int:
           "jax or the JAX package was imported")
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
-    per_step = tlayers["launches_per_step"]
+    # launches per step from the main paths' own runs, counts set to 0
+    # just before each: the 10k --fwt_no_native run, the 1M default run
+    steps_10k = -(-len(trn["preds"]) // TRAIN_BATCH)
+    per_step = {k: v / steps_10k for k, v in trn["launches"].items()}
+    packed_step = big["runs"]["default"]["launches_per_step"]
+    nat_launches = nat["launches"]
     upd_dev = step_upd["lr_device"]["device_us"] + step_upd["ffm_device"]["device_us"]
+    nf, nu = nkern["ffm"], nkern["update"]
+    nat_upd = {"max_abs_err": nu["max_abs_err"], "ms": nu["ms"],
+               "plain_ms": nu["plain_ms"], "work": step_bound(nu),
+               "device_us": nu["lr_device"]["device_us"] + nu["ffm_device"]["device_us"],
+               "K": {"lr": nu["lr_K"], "ffm": nu["ffm_K"]}}
+    nat_fwd = {**nf["fwd"], "B": nf["B"], "N": nf["N"]}
+    nat_bwd = {**nf["bwd"], "B": nf["B"], "N": nf["N"]}
     print(json.dumps({"kernels": [
         kernel_row("ffm_triangle", "ffm_triangle.cu",
                    "fwumious_wabbit_tpu/ops/pallas/ffm.py:131 (with the slab "
-                   "gather of ops/tables.py)", launches, kern["fwd"],
+                   "gather of ops/tables.py)", launches,
+                   max(kern["fwd"], nat_fwd["max_abs_err"]),
                    fwd256["wall_us"]["fwd"] / 1e3,
                    fwd256["wall_us"]["fwd_plain"] / 1e3, fwd256["fwd_bound"],
                    fwd256["device"]["fwd"]["device_us"],
                    layers["ffm_fused_launches_per_batch"],
-                   per_step["ffm_triangle"]),
+                   per_step["ffm_triangle"], packed_step["ffm_triangle"],
+                   nat_launches["ffm_triangle"], nat_fwd),
         kernel_row("ffm_triangle_bwd", "ffm_triangle.cu",
                    "jax.vjp of models/model.py:418-443 (no Pallas kernel)",
-                   trn["launches"]["ffm_triangle_bwd"], kern["bwd"],
+                   trn["launches"]["ffm_triangle_bwd"],
+                   max(kern["bwd"], nat_bwd["max_abs_err"]),
                    t1024["wall_us"]["bwd"] / 1e3,
                    t1024["wall_us"]["bwd_plain"] / 1e3, t1024["bwd_bound"],
                    t1024["device"]["bwd"]["device_us"], 0,
-                   per_step["ffm_triangle_bwd"]),
+                   per_step["ffm_triangle_bwd"], packed_step["ffm_triangle_bwd"],
+                   nat_launches["ffm_triangle_bwd"], nat_bwd),
         kernel_row("sparse_adagrad_update", "sparse_update.cu",
                    "fwumious_wabbit_tpu/ops/pallas/sparse_update.py:315",
                    trn["launches"]["sparse_adagrad_update"],
-                   max(upd["max_abs_err"], step_upd["max_abs_err"]),
+                   max(upd["max_abs_err"], step_upd["max_abs_err"],
+                       nat_upd["max_abs_err"]),
                    step_upd["ms"], step_upd["plain_ms"], step_bound(step_upd),
-                   upd_dev, 0, per_step["sparse_adagrad_update"])]}))
+                   upd_dev, 0, per_step["sparse_adagrad_update"],
+                   packed_step["sparse_adagrad_update"],
+                   nat_launches["sparse_adagrad_update"], nat_upd)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

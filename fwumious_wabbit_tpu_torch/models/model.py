@@ -161,6 +161,7 @@ class FwModel(nn.Module):
         self.joined_width = self.num_combos + (self.tri_width if self.has_ffm else 0)
         self.layers = nn.ModuleList()
         self.final = None
+        self._ones = {}  # (shape, device) → the FFM values when left out
 
     # -- weights ---------------------------------------------------------------
 
@@ -226,16 +227,30 @@ class FwModel(nn.Module):
 
     # -- forward pieces --------------------------------------------------------
 
+    def lr_ids_combos(self, batch: dict):
+        """``(ids, combos)`` of the LR features. The host may pack
+        ``combo+1`` into the id bits above ``bit_precision`` and leave the
+        combos array out (train/producer.py; padding packs as 0 → combo
+        −1); the ids are then non-negative, so the arithmetic shift is
+        logical (fwumious_wabbit_tpu/models/model.py:379-390)."""
+        ids = batch["lr_ids"]
+        if "lr_combos" in batch:
+            return ids, batch["lr_combos"]
+        combos = (ids >> self.mi.bit_precision) - 1
+        return ids & self.mi.lr_hash_mask, combos
+
     def gather_lr(self, batch: dict) -> torch.Tensor:
         """Scalar weights w[h] for the LR ids → [B, L]."""
-        return tables.gather_scalars(self.lr_w, batch["lr_ids"])
+        return tables.gather_scalars(self.lr_w, self.lr_ids_combos(batch)[0])
 
     def lr_outputs(self, lr_wg: torch.Tensor, batch: dict) -> torch.Tensor:
         """[B, C]: per-combo sums of w[hash]·value
         (reference: src/block_lr.rs:28-47), as a masked scatter-add. A combo
-        outside ``[0, C)`` (−1 padding) adds nothing."""
-        contrib = lr_wg * batch["lr_vals"]  # [B, L]
-        combos = batch["lr_combos"].long()
+        outside ``[0, C)`` (−1 padding) adds nothing. ``lr_vals`` may be
+        left out when all ones."""
+        vals = batch.get("lr_vals")
+        contrib = lr_wg if vals is None else lr_wg * vals  # [B, L]
+        combos = self.lr_ids_combos(batch)[1].long()
         valid = (combos >= 0) & (combos < self.num_combos)
         contrib = torch.where(valid, contrib, torch.zeros_like(contrib))
         out = contrib.new_zeros((contrib.shape[0], self.num_combos))
@@ -246,10 +261,17 @@ class FwModel(nn.Module):
         """[B, F(F+1)/2] interaction triangle through ops/ffm.FfmFused: the
         slabs of the FFM ids are read from ``ffm_w`` inside the kernel (the
         kernel pair on the card). With ``emb_leaf`` (ops/ffm.slab_leaf) the
-        gradient with respect to the gathered slabs flows to it."""
-        return FfmFused.apply(emb_leaf, self.ffm_w,
-                              batch["ffm_ids"].to(torch.int32).contiguous(),
-                              batch["ffm_vals"].contiguous(),
+        gradient with respect to the gathered slabs flows to it.
+        ``ffm_vals`` may be left out when all ones: the kernels then read a
+        ones tensor, made once per shape."""
+        ids = batch["ffm_ids"].to(torch.int32).contiguous()
+        vals = batch.get("ffm_vals")
+        if vals is None:
+            key = (tuple(ids.shape), ids.device)
+            vals = self._ones.get(key)
+            if vals is None:
+                vals = self._ones[key] = torch.ones(ids.shape, device=ids.device)
+        return FfmFused.apply(emb_leaf, self.ffm_w, ids, vals.contiguous(),
                               batch["ffm_fields"].to(torch.int32).contiguous(),
                               self.num_fields, self.ffm_k, self.ffm_spec)
 

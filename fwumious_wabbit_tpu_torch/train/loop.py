@@ -3,13 +3,30 @@ fwumious_wabbit_tpu/train/loop.py, for the modes ported so far:
 
 * ``--daemon -i model.fwt``: the TCP line server (serve/server.py);
 * training: ``--data x.vw <model flags> [-p preds] [-f model.fwt
-  --save_resume] [-i start.fwt]`` — read VW text, parse, translate, batch,
-  then forward, backward and the sparse AdaGrad update on the device; the
-  training-path predictions (the forward values before each update) are
-  written ``%.6f`` per example after ``--predictions_after``, and the final
-  model to ``-f``. ``--holdout_after``, ``--prediction_model_delay``,
-  ``--fwt_exact`` (batch 1) and ``--fwt_batch_size`` keep their meaning;
+  --save_resume] [-i start.fwt]`` — forward, backward and the sparse AdaGrad
+  update on the device; the training-path predictions (the forward values
+  before each update) are written ``%.6f`` per example after
+  ``--predictions_after``, and the final model to ``-f``.
+  ``--holdout_after``, ``--prediction_model_delay``, ``--fwt_exact`` (batch
+  1) and ``--fwt_batch_size`` keep their meaning;
 * ``-t`` (with or without ``-i``): the same loop without updates.
+
+Training and ``-t`` (on the device engine) read their input through the JAX
+CLI's default path, as its ``_use_native`` chooses it for both: the C++
+ingest (native/ ``NativeIngest``: parse + translate, host counts, slimming,
+bit-packing and vocabulary encoding, train/producer.py) on one thread; K
+batches packed into one u32 buffer (train/packed.py, ``--fwt_superbatch``,
+default 8); one host→device copy per superbatch through a ring of pinned
+buffers on a thread and stream of their own (producer ``Transferrer``); K
+train steps on the card; one prediction fetch per superbatch, copied back
+without blocking and written by the writer thread once its event has
+completed. ``-t`` sends its batches one at a time through the same copy
+stage. The daemon parses in Python. ``--fwt_bitpack``, ``--fwt_vocab``,
+``--fwt_pack_cache`` and ``--fwt_fetch_stack`` keep their meaning. ``--fwt_no_native`` chooses the
+Python parser instead (the JAX CLI's fallback path). Unlike the JAX CLI,
+which quietly trains on the Python path when its C++ library does not load,
+the default path here fails with the compiler's message and exits
+non-zero: only ``--fwt_no_native`` chooses the Python ingest.
 
 Any other mode exits non-zero with "not yet ported": training a dense
 tower (``--nn``), the record cache (``-c``), convert, sharding. The flag
@@ -18,19 +35,25 @@ Every mode runs on the CUDA card; the CPU only with ``--fwt_platform cpu``.
 ``--fwt_serve_engine`` keeps its meaning, except that ``auto`` means the
 device engine here: ``native`` (the port's copy of the embedded C++ engine,
 native/) must be asked for, and fails rather than falls back when it
-cannot be built. The trainer reads
-text through the Python parser, the JAX loop's ``--fwt_no_native`` path;
-``--fwt_pallas_update`` is accepted and ignored (on a CUDA tensor the
-sparse update kernel always runs).
+cannot be built. ``--fwt_pallas_update`` is accepted and ignored (on a CUDA
+tensor the sparse update kernel always runs).
+
+``FWT_PIPELINE_DEPTH`` bounds the prediction fetches in flight to the
+writer (default 3); ``FWT_COUNTERS_OUT=<path>`` writes the run's examples,
+elapsed seconds and in-run counters as JSON.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
+import queue
+import threading
 import time
 
 import numpy as np
+import torch
 
 from ..config.cmdline import build_parser
 from ..config.model_instance import ModelInstance
@@ -102,83 +125,223 @@ def np_counts(ids: np.ndarray, vals: np.ndarray, shift: int) -> np.ndarray:
     return encode_counts(c).reshape(ids.shape)
 
 
-def run_train_loop(args, mi, vw, model) -> None:
-    """Train (or, with ``-t``, only predict) over ``args.data``, updating
-    the model's tables in place, and log the rate
-    (fwumious_wabbit_tpu/train/loop.py ``run_train_loop``, its Python-ingest
-    branch)."""
-    from .step import make_predict_step, make_train_step, train_batch_dict
+def _to_host(preds: torch.Tensor):
+    """``(host tensor, event or None)``: the predictions copied back to the
+    host. On the card the copy goes into pinned memory without blocking,
+    and the event marks its end (the writer waits on it: the counterpart
+    of the JAX loop's ``copy_to_host_async``). On the CPU a plain copy, so
+    a later in-place write (the fetch ring) cannot reach it."""
+    if preds.device.type != "cuda":
+        return preds.detach().clone(), None
+    host = torch.empty(preds.shape, dtype=preds.dtype, pin_memory=True)
+    host.copy_(preds, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev
 
-    testonly = bool(args.testonly)
-    batch_size = 1 if args.fwt_exact else max(1, int(args.fwt_batch_size or 1024))
-    predictions_after = int(args.predictions_after or 0)
-    holdout_after = (int(args.holdout_after)
-                     if args.holdout_after is not None else None)
-    delay = int(args.prediction_model_delay or 0)
 
-    parser = VowpalParser(vw)
-    translator = FeatureTranslator(mi)
-    batcher = Batcher(batch_size)
-    writer = PredictionWriter(args.predictions, bool(args.predictions_stdout))
-    train_step = None if testonly else make_train_step(model)
-    predict_step = make_predict_step(model)
+class _Run:
+    """One training (or ``-t``) run's state, shared by both ingest paths:
+    the steps, the prediction writer thread and its bounded queue
+    (``FWT_PIPELINE_DEPTH`` fetches in flight), the delayed-learning queue,
+    the example count and the in-run counters — each counter written by
+    its stage's own thread:
 
-    # host multiplicity counts for the scopes with the batch-mean cap, keyed
-    # per weight for LR (id) and per window for FFM (id >> log2 align)
-    count_keys = {}
-    if model.opt_lr.batch_mean:
-        count_keys["lr"] = 0
-    if (model.has_ffm and model.opt_ffm.batch_mean
-            and model.ffm_spec.rows_per_slab == 1):
-        count_keys["ffm"] = (model.ffm_spec.align - 1).bit_length()
+    * producer span ≈ producer_busy_s + producer_stall_s
+    * transferrer ≈ xfer_starve_s + xfer_busy_s + xfer_stall_s
+    * consumer ≈ consumer_starve_s + dispatch_s + writer_stall_s
+    * writer ≈ (queue wait) + fetch_force_s + write_s
 
-    # batches end at the train/holdout boundary
-    cut_at = holdout_after - 1 if holdout_after is not None else None
-    delayed: list = []  # (batch dict, n) awaiting training under the delay
-    delayed_examples = 0
-    example_num = 0
-    pending: list = []
+    fetch_force_s is the writer's wait for a prediction copy's event, and
+    so for the steps before it: the in-run proxy of the card's busy time
+    (fwumious_wabbit_tpu/train/loop.py:235-342)."""
 
-    def process(bd: dict, n: int) -> None:
-        nonlocal example_num, delayed_examples
-        first_num = example_num + 1
-        example_num += n
-        update = not testonly and (holdout_after is None
-                                   or first_num < holdout_after)
-        if delay == 0:
-            preds = train_step(bd) if update else predict_step(bd)
+    def __init__(self, args, model):
+        from .step import make_predict_step, make_train_step
+
+        self.testonly = bool(args.testonly)
+        self.batch_size = (1 if args.fwt_exact
+                           else max(1, int(args.fwt_batch_size or 1024)))
+        self.predictions_after = int(args.predictions_after or 0)
+        self.holdout_after = (int(args.holdout_after)
+                              if args.holdout_after is not None else None)
+        # batches end at the train/holdout boundary
+        self.cut_at = (self.holdout_after - 1
+                       if self.holdout_after is not None else None)
+        self.delay = int(args.prediction_model_delay or 0)
+        self.writer = PredictionWriter(args.predictions,
+                                       bool(args.predictions_stdout))
+        self.train_step = None if self.testonly else make_train_step(model)
+        self.predict_step = make_predict_step(model)
+        # host multiplicity counts for the scopes with the batch-mean cap,
+        # keyed per weight for LR (id) and per window for FFM (id >> log2
+        # align)
+        self.count_keys = {}
+        if model.opt_lr.batch_mean:
+            self.count_keys["lr"] = 0
+        if (model.has_ffm and model.opt_ffm.batch_mean
+                and model.ffm_spec.rows_per_slab == 1):
+            self.count_keys["ffm"] = (model.ffm_spec.align - 1).bit_length()
+        self.count_keys = self.count_keys or None
+        self.delayed: list = []  # (batch dict, n) awaiting training
+        self.delayed_examples = 0
+        self.example_num = 0
+        self.ctr = {
+            "producer_busy_s": 0.0, "producer_stall_s": 0.0,
+            "xfer_starve_s": 0.0, "xfer_busy_s": 0.0, "xfer_stall_s": 0.0,
+            "xfer_bytes": 0, "xfer_puts": 0,
+            "consumer_starve_s": 0.0, "dispatch_s": 0.0,
+            "writer_stall_s": 0.0, "fetch_force_s": 0.0, "fetch_count": 0,
+            "fetch_bytes": 0, "write_s": 0.0,
+        }
+        self.wq: queue.Queue = queue.Queue(
+            maxsize=int(os.environ.get("FWT_PIPELINE_DEPTH", "3")))
+        self.werr: list = []
+        self.wt = threading.Thread(target=self._write_preds, daemon=True)
+        self.t0, self.t0_cpu = time.time(), time.process_time()
+        self.t0_thread = time.thread_time()  # the consumer thread's CPU
+        self.wt.start()
+
+    def _write_preds(self) -> None:
+        """The writer thread: one fetch per item — [B] from a single step,
+        [K, B] from a packed one, [M, K, B] from the fetch ring — whose
+        metas map its leading rows back to example segments."""
+        ctr = self.ctr
+        cpu0 = time.thread_time()
+        try:
+            while (item := self.wq.get()) is not None:
+                host, ev, metas = item
+                t1 = time.perf_counter()
+                if ev is not None:
+                    ev.synchronize()
+                arr = host.numpy()
+                ctr["fetch_force_s"] += time.perf_counter() - t1
+                ctr["fetch_count"] += 1
+                ctr["fetch_bytes"] += arr.nbytes
+                t1 = time.perf_counter()
+                arr = arr.reshape(len(metas), -1)
+                for row, (first_num, n) in zip(arr, metas):
+                    skip = max(0, self.predictions_after - first_num + 1)
+                    self.writer.write_block(row[:n][skip:])
+                ctr["write_s"] += time.perf_counter() - t1
+        except BaseException as e:  # noqa: BLE001 — re-raised on the main thread
+            self.werr.append(e)
+            while self.wq.get() is not None:  # unblock the consumer
+                pass
+        finally:
+            ctr.setdefault("cpu_s_by_thread", {})["writer"] = (
+                time.thread_time() - cpu0)
+
+    def fetch(self, preds: torch.Tensor, metas: list) -> None:
+        """Pass predictions for the segments ``metas`` (first example
+        number, count) to the writer; blocks when the pipeline is full."""
+        t1 = time.perf_counter()
+        self.wq.put((*_to_host(preds), metas))
+        self.ctr["writer_stall_s"] += time.perf_counter() - t1
+        if self.werr:
+            raise self.werr[0]
+
+    def count(self, n: int) -> int:
+        """Number the next ``n`` examples; returns the first (1-based)."""
+        self.example_num += n
+        return self.example_num - n + 1
+
+    def process(self, bd: dict, n: int) -> None:
+        """One batch: train or predict, and pass its predictions to the
+        writer. Batches never span the train/holdout boundary (the
+        producers cut there), so the update flag is uniform per batch."""
+        first_num = self.count(n)
+        update = not self.testonly and (self.holdout_after is None
+                                        or first_num < self.holdout_after)
+        t1 = time.perf_counter()
+        if self.delay == 0:
+            preds = self.train_step(bd) if update else self.predict_step(bd)
+            self.ctr["dispatch_s"] += time.perf_counter() - t1
         else:
             # predict with the lagging model, then train what left the
             # queue; the reference's delay path trains every delayed
             # example, holdout or not (src/main.rs:249-258)
-            preds = predict_step(bd)
-            delayed.append((bd, n))
-            delayed_examples += n
-            while delayed and delayed_examples - delayed[0][1] >= delay:
-                old_bd, old_n = delayed.pop(0)
-                delayed_examples -= old_n
-                if train_step is not None:
-                    train_step(old_bd)
-        if writer.active:
-            skip = max(0, predictions_after - first_num + 1)
-            writer.write_block(preds.cpu().numpy()[:n][skip:])
+            preds = self.predict_step(bd)
+            self.delayed.append((bd, n))
+            self.delayed_examples += n
+            while self.delayed and \
+                    self.delayed_examples - self.delayed[0][1] >= self.delay:
+                old_bd, old_n = self.delayed.pop(0)
+                self.delayed_examples -= old_n
+                if self.train_step is not None:
+                    self.train_step(old_bd)
+        if self.writer.active:
+            self.fetch(preds, [(first_num, n)])
+
+    def finish(self) -> dict:
+        """Train what the delay still holds, drain the writer, log the rate
+        and return ``{'examples', 'elapsed', 'counters'}``."""
+        if self.train_step is not None:
+            for bd, _n in self.delayed:
+                self.train_step(bd)
+        self.close()
+        if self.werr:
+            raise self.werr[0]
+        elapsed = time.time() - self.t0
+        self.ctr.setdefault("cpu_s_by_thread", {})["consumer"] = (
+            time.thread_time() - self.t0_thread)
+        log.info("Elapsed: %.2fs rows: %d (%.0f ex/s)", elapsed,
+                 self.example_num, self.example_num / max(elapsed, 1e-9))
+        return {"examples": self.example_num, "elapsed": elapsed,
+                "counters": dict(self.ctr, elapsed_s=elapsed,
+                                 process_cpu_s=time.process_time() - self.t0_cpu)}
+
+    def close(self) -> None:
+        if self.wt.is_alive():
+            self.wq.put(None)
+            self.wt.join()
+        self.writer.close()
+
+
+def run_train_loop(args, mi, vw, model) -> dict:
+    """Train (or, with ``-t``, only predict) over ``args.data``, updating
+    the model's tables in place, and log the rate
+    (fwumious_wabbit_tpu/train/loop.py ``run_train_loop``, without its
+    multi-host branch and its fetch ring's automatic engagement). Returns
+    ``{'examples', 'elapsed', 'counters'}``."""
+    run = _Run(args, model)
+    try:
+        if args.fwt_no_native:
+            _python_ingest(args, mi, vw, run)
+        else:
+            _native_ingest(args, mi, vw, model, run)
+        return run.finish()
+    finally:
+        run.close()
+
+
+def _python_ingest(args, mi, vw, run: _Run) -> None:
+    """``--fwt_no_native``: the Python parser, translator and batcher, with
+    numpy host counts, one batch at a time (the JAX loop's fallback path)."""
+    from .step import train_batch_dict
+
+    parser = VowpalParser(vw)
+    translator = FeatureTranslator(mi)
+    batcher = Batcher(run.batch_size)
+    count_keys = run.count_keys
+    pending: list = []
 
     def flush() -> None:
         if not pending:
             return
         batch = batcher.make_batch(pending)
         bd = train_batch_dict(batch)
-        if "lr" in count_keys:
-            bd["lr_counts"] = np_counts(batch.lr_ids, batch.lr_vals,
-                                        count_keys["lr"])
-        if "ffm" in count_keys and batch.ffm_ids.size:
-            bd["ffm_counts"] = np_counts(batch.ffm_ids, batch.ffm_vals,
-                                         count_keys["ffm"])
-        process(bd, batch.num_examples)
+        if count_keys is not None:
+            if "lr" in count_keys:
+                bd["lr_counts"] = np_counts(batch.lr_ids, batch.lr_vals,
+                                            count_keys["lr"])
+            if "ffm" in count_keys and batch.ffm_ids.size:
+                bd["ffm_counts"] = np_counts(batch.ffm_ids, batch.ffm_vals,
+                                             count_keys["ffm"])
+        run.process(bd, batch.num_examples)
         pending.clear()
 
     stream = create_buffered_input(args.data)
-    t0 = time.time()
     try:
         seen = 0
         while True:
@@ -187,19 +350,138 @@ def run_train_loop(args, mi, vw, model) -> None:
                 break
             seen += 1
             pending.append(translator.translate(rec))
-            if len(pending) >= batch_size or (cut_at is not None
-                                              and seen == cut_at):
+            if len(pending) >= run.batch_size or (run.cut_at is not None
+                                                  and seen == run.cut_at):
                 flush()
         flush()
-        if delay > 0 and train_step is not None:
-            for bd, _n in delayed:
-                train_step(bd)
     finally:
-        writer.close()
         stream.close()
-    elapsed = time.time() - t0
-    log.info("Elapsed: %.2fs rows: %d (%.0f ex/s)", elapsed, example_num,
-             example_num / max(elapsed, 1e-9))
+
+
+def _native_ingest(args, mi, vw, model, run: _Run) -> None:
+    """The default path (fwumious_wabbit_tpu/train/loop.py:432-633): the
+    producer thread (C++ ingest → slim → superbatch pack), the transfer
+    thread (pinned ring → the card) and this thread consuming: K train
+    steps per packed superbatch and one prediction fetch for them. Groups
+    never span the train/holdout boundary; partial, holdout, ``-t`` and
+    delayed-learning batches arrive one at a time (``"s"``)."""
+    from . import packed as packed_mod
+    from .producer import SuperbatchProducer, arrived, run_transferrer
+
+    K = int(args.fwt_superbatch or 0)
+    if K <= 0:
+        K = 8
+    ctr, batch_size = run.ctr, run.batch_size
+    can_pack = K > 1 and run.delay == 0 and run.train_step is not None
+    bitpack_on = (args.fwt_bitpack or "auto") != "off"
+    # the producer owns the persistent per-column dictionaries; a full
+    # snapshot rides the queue ahead of any group that grew them
+    vocab_state = (packed_mod.VocabTransferState()
+                   if bitpack_on and (args.fwt_vocab or "auto") != "off"
+                   else None)
+
+    # the pack cache: record the producer's queue stream on the first pass,
+    # replay it on re-runs over the same input and config. auto engages
+    # with -c, which is not ported yet, so here only "on" engages it
+    pc_mode = args.fwt_pack_cache or "auto"
+    pack_iter = pack_writer = None
+    if can_pack and pc_mode != "off" and os.path.isfile(args.data) and (
+            pc_mode == "on" or bool(args.cache)):
+        from . import pack_cache as pcache
+
+        ppath = pcache.pack_cache_path_for(args.data)
+        psig = pcache.stream_signature(
+            mi, vw, batch_size=batch_size, K=K, bitpack_on=bitpack_on,
+            vocab_on=vocab_state is not None, count_keys=run.count_keys,
+            cut_at=run.cut_at, data_path=args.data)
+        pack_iter = pcache.open_pack_cache(ppath, psig)
+        if pack_iter is not None:
+            log.info("using pack cache %s", ppath)
+        else:
+            try:
+                pack_writer = pcache.PackCacheWriter(ppath, psig)
+            except OSError as e:
+                log.warning("pack cache disabled (%s)", e)
+
+    q: queue.Queue = queue.Queue(maxsize=3)
+    q2: queue.Queue = queue.Queue(maxsize=3)
+    xfer_stats = {"starve_s": 0.0, "xfer_s": 0.0, "put_s": 0.0, "bytes": 0}
+    producer = SuperbatchProducer(
+        args, mi, vw, batch_size=batch_size, K=K, can_pack=can_pack,
+        count_keys=run.count_keys, cut_at=run.cut_at,
+        holdout_after=run.holdout_after, out_queue=q, ctr=ctr,
+        xfer_stats=xfer_stats, vocab_state=vocab_state, pack_iter=pack_iter,
+        pack_writer=pack_writer, bitpack_on=bitpack_on)
+    prod_t = threading.Thread(target=producer.run, daemon=True)
+    xfer_t = threading.Thread(target=run_transferrer,
+                              args=(q, q2, ctr, xfer_stats, model.lr_w.device),
+                              daemon=True)
+    prod_t.start()
+    xfer_t.start()
+
+    # --fwt_fetch_stack M > 1: each packed step writes its [K, B]
+    # predictions into row `slot` of a device ring of M superbatches, and
+    # the ring is fetched once per M (a tail flushes it early)
+    M = int(args.fwt_fetch_stack or 0)
+    use_ring = M > 1 and run.writer.active
+    ring = None
+    ring_metas: list = []
+
+    def flush_ring():
+        if ring_metas:
+            run.fetch(ring[:len(ring_metas)], list(ring_metas))
+            ring_metas.clear()
+
+    vocab = None  # the [n_rows, 128] i32 dictionary snapshot on the device
+    while True:
+        t1 = time.perf_counter()
+        item = q2.get()
+        ctr["consumer_starve_s"] += time.perf_counter() - t1
+        if item is None:
+            break
+        if isinstance(item, BaseException):
+            raise item
+        if item[0] == "v":
+            vocab = arrived(item[1], item[2])
+        elif item[0] == "p":
+            _, buf, lay, gn, ev = item
+            buf = arrived(buf, ev)
+            first_num = run.count(gn)
+            kk = int(buf.shape[0])  # K' — short tails pack too
+            vargs = (vocab,) if lay.vocabs else ()
+            t1 = time.perf_counter()
+            if use_ring and kk == K:
+                if ring is None:
+                    ring = torch.zeros((M, K, batch_size), device=buf.device)
+                packed_mod.make_packed_train_step_ring(model, lay, K, M)(
+                    buf, ring, len(ring_metas), *vargs)
+                ctr["dispatch_s"] += time.perf_counter() - t1
+                ring_metas.append((first_num, gn))
+                if len(ring_metas) == M:
+                    flush_ring()
+            else:
+                flush_ring()  # a tail: keep the prediction stream in order
+                preds = packed_mod.make_packed_train_step(model, lay, kk)(
+                    buf, *vargs)
+                ctr["dispatch_s"] += time.perf_counter() - t1
+                if run.writer.active:
+                    run.fetch(preds, [(first_num, gn)])
+        else:
+            _, bd, n, ev = item
+            flush_ring()  # keep the prediction stream in order
+            run.process({k: arrived(v, ev) for k, v in bd.items()}, n)
+    flush_ring()
+    # the producer writes ctr['producer_busy_s'] in its finally block: join
+    # both stage threads before the counters are read
+    prod_t.join(timeout=10.0)
+    xfer_t.join(timeout=10.0)
+    if prod_t.is_alive() or xfer_t.is_alive():
+        ctr["counters_partial"] = True
+        log.warning("pipeline stage thread still alive after join timeout "
+                    "(producer=%s transfer=%s); in-run counters are partial",
+                    prod_t.is_alive(), xfer_t.is_alive())
+    if vocab_state is not None:
+        vocab_state.close()
 
 
 def main(argv=None) -> int:
@@ -274,8 +556,16 @@ def main(argv=None) -> int:
                       "tower (--nn)")
             return 2
         model.load_params(model.init_params(device))
+    if not args.fwt_no_native:
+        from .. import native
+
+        try:
+            native.require()
+        except RuntimeError as e:
+            log.error("%s (--fwt_no_native trains through the Python ingest)", e)
+            return 1
     try:
-        run_train_loop(args, mi, vw, model)
+        result = run_train_loop(args, mi, vw, model)
     except (FlushCommand, HogwildLoadCommand) as e:
         # reference: in-band commands in an input FILE abort the run
         # (src/main.rs:44-47,218-221)
@@ -284,4 +574,11 @@ def main(argv=None) -> int:
     if args.final_regressor:
         model_file.save_model(args.final_regressor, mi, vw, model,
                               quantize_weights=bool(args.weight_quantization))
+    cpath = os.environ.get("FWT_COUNTERS_OUT")
+    if cpath:
+        try:
+            with open(cpath, "w") as f:
+                json.dump(result, f)
+        except OSError as e:
+            log.warning("FWT_COUNTERS_OUT write failed: %s", e)
     return 0

@@ -31,9 +31,17 @@ def train_batch_dict(batch) -> dict:
 
 
 def to_device(batch: dict, keys, device) -> dict:
-    """The host arrays of ``batch`` under ``keys`` as tensors on ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device)
-            for k in keys if batch.get(k) is not None}
+    """The arrays of ``batch`` under ``keys`` as tensors on ``device``: host
+    arrays are copied, tensors already there pass through uncopied."""
+    out = {}
+    for k in keys:
+        v = batch.get(k)
+        if v is None:
+            continue
+        if not isinstance(v, torch.Tensor):
+            v = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = v.to(device)
+    return out
 
 
 def make_predict_step(model: FwModel):
@@ -74,7 +82,8 @@ def forward(model: FwModel, bd: dict, leaves: list):
     """``(logit, p, dlogit)``: the logits (with their graph to the leaves),
     the probabilities, and the reference's general_gradient —
     ``(p − label)·importance`` inside the ±50 clamp, 0 outside and for NaN
-    (src/block_loss_functions.rs:122-141)."""
+    (src/block_loss_functions.rs:122-141). The label may be u8 and the
+    importance left out when all ones."""
     with torch.enable_grad():
         parts = [model.lr_outputs(leaves[0], bd)]
         if model.has_ffm:
@@ -83,7 +92,10 @@ def forward(model: FwModel, bd: dict, leaves: list):
         logit = x.sum(-1)
     lg = logit.detach()
     p = predict_prob(lg)
-    gg = (p - bd["label"].to(torch.float32)) * bd["importance"]
+    gg = p - bd["label"].to(torch.float32)
+    imp = bd.get("importance")
+    if imp is not None:
+        gg = gg * imp
     inside = (lg >= -50.0) & (lg <= 50.0) & ~torch.isnan(lg)
     return logit, p, torch.where(inside, gg, torch.zeros_like(gg))
 
@@ -99,7 +111,7 @@ def lr_update_rows(model: FwModel, bd: dict, g_lr: torch.Tensor):
     carries the same factor), then per-example dedup keyed by the id and
     the lane expansion (fwumious_wabbit_tpu/train/step.py:250-290)."""
     opt = model.opt_lr
-    lr_ids = bd["lr_ids"]
+    lr_ids = model.lr_ids_combos(bd)[0]
     counts = bd.get("lr_counts")
     pre_scaled = opt.batch_mean and counts is not None
     if pre_scaled:
@@ -143,7 +155,9 @@ def make_train_step(model: FwModel):
     and the sparse row update (fwumious_wabbit_tpu/train/step.py:161-337).
 
     ``batch`` is a host dict as :func:`train_batch_dict` gives, optionally
-    with ``lr_counts``/``ffm_counts`` (the host's multiplicity codes)."""
+    with ``lr_counts``/``ffm_counts`` (the host's multiplicity codes), or
+    the slim form of the C++ ingest (train/producer.py), whose tensors may
+    already be on the device (train/packed.py)."""
     if model.has_nn:
         raise NotImplementedError("not yet ported: training a dense tower (--nn)")
     device = model.lr_w.device

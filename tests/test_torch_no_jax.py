@@ -3,8 +3,9 @@ or the JAX package fwumious_wabbit_tpu fails, every module of
 fwumious_wabbit_tpu_torch imports, a CPU predict runs from a model file the
 port itself writes, on the device engine and on the port's own build of the
 embedded C++ engine (``--fwt_serve_engine native``) with equal predictions,
-and a short CPU training through the CLI writes predictions and a model
-file with optimizer state."""
+and a short CPU training through the CLI's default path (the C++ ingest and
+packed superbatches) writes predictions and a model file with optimizer
+state, its predictions equal to the ``--fwt_no_native`` path's."""
 
 import subprocess
 import sys
@@ -67,14 +68,21 @@ SCRIPT = textwrap.dedent("""
     from fwumious_wabbit_tpu_torch import native as port_native
     assert "fwumious_wabbit_tpu_torch/build/" in str(port_native.library_path())
     open(tmp + "/t.vw", "w").write("1 |A a |B b\\n-1 |A c |B d e\\n" * 4)
-    assert main(["--data", tmp + "/t.vw", "--keep", "A", "--keep", "B",
-                 "-b", "10", "--ffm_k", "4", "--ffm_bit_precision", "10",
-                 "--ffm_field", "A", "--ffm_field", "B", "--adaptive",
-                 "--power_t", "0", "--fwt_batch_size", "2", "-p",
-                 tmp + "/t.out", "-f", tmp + "/t.fwt", "--save_resume",
-                 "--fwt_platform", "cpu"]) == 0
+    train = ["--data", tmp + "/t.vw", "--keep", "A", "--keep", "B",
+             "-b", "10", "--ffm_k", "4", "--ffm_bit_precision", "10",
+             "--ffm_field", "A", "--ffm_field", "B", "--adaptive",
+             "--power_t", "0", "--fwt_batch_size", "2", "--fwt_platform", "cpu"]
+    import json, os
+    os.environ["FWT_COUNTERS_OUT"] = tmp + "/c.json"
+    assert main(train + ["-p", tmp + "/t.out", "-f", tmp + "/t.fwt",
+                         "--save_resume"]) == 0  # the default: C++ ingest, packed
+    counters = json.load(open(tmp + "/c.json"))
+    assert counters["examples"] == 8 and counters["counters"]["xfer_puts"] > 0
     preds = [float(x) for x in open(tmp + "/t.out").read().split()]
     assert len(preds) == 8 and preds[6] > preds[0] + 0.1, preds  # it learns
+    assert main(train + ["-p", tmp + "/py.out", "--fwt_no_native"]) == 0
+    py = [float(x) for x in open(tmp + "/py.out").read().split()]
+    assert max(abs(a - b) for a, b in zip(py, preds)) <= 2e-6, (py, preds)
     from fwumious_wabbit_tpu_torch.persistence.model_file import load_model
     _, _, trained = load_model(tmp + "/t.fwt", device="cpu")
     assert trained.has_state and float(trained.lr_acc.abs().sum()) > 0

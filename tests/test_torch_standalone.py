@@ -4,7 +4,12 @@ modules behave as the originals on the same inputs — the CLI parser, the
 model configuration, parse + translate + batch (the port's synthetic
 Eat-Rate lines and hand-written lines of every parser form, with a
 ``--transform`` case), the model-file header in both directions, the C++
-reply formatter and the embedded C++ engine's predictions."""
+reply formatter and the embedded C++ engine's predictions. The training
+path's copies (the ingest bindings of ``native/``, the host half of
+``train/packed.py``, ``train/producer.py``, ``train/pack_cache.py``) are held
+to theirs by tests/test_torch_native_ingest.py, test_torch_packed.py and
+test_torch_producer.py; here, the pack cache's layout records cross between
+the packages."""
 
 import ast
 import dataclasses
@@ -290,3 +295,25 @@ def test_native_engine_fails_with_the_compiler_message(monkeypatch, tmp_path):
         native.EmbeddedPredictor("-i /nonexistent.fwt")
     assert native.format_preds(np.zeros(2, np.float32)) is None
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_pack_cache_layout_records_cross_packages():
+    """A packed layout written by one package's pack cache reads back in
+    the other's with the same signature, under the same file format."""
+    from fwumious_wabbit_tpu.train import pack_cache as jpc
+    from fwumious_wabbit_tpu.train import packed as jpacked
+    from fwumious_wabbit_tpu_torch.train import pack_cache as ppc
+    from fwumious_wabbit_tpu_torch.train import packed as ppacked
+
+    assert (ppc.PACK_MAGIC, ppc.PACK_VERSION, ppc.PACK_TRAILER) == (
+        jpc.PACK_MAGIC, jpc.PACK_VERSION, jpc.PACK_TRAILER)
+    bd = {"label": np.zeros(8, np.uint8), "lr_ids": np.zeros((8, 3), np.int32)}
+    spec = dict(appends=(("lr_vals", 1.0),), bitpacks=(("lr_ids", 25, 2),),
+                row_broadcasts=(("lr_combos", "|i1", (0, 1, -1), 8),),
+                vocabs=(("lr_ids", (6, 25, 4), (0, -1, 64), 2),),
+                count_tabs=(("lr_counts", "lr_ids", (0, -1, 64)),),
+                bit_cols=(("label", 8),))
+    jlay, play = jpacked.layout_of(bd, **spec), ppacked.layout_of(bd, **spec)
+    assert ppc._layout_to_json(play) == jpc._layout_to_json(jlay)
+    assert jpc._layout_from_json(ppc._layout_to_json(play)).signature == play.signature
+    assert ppc._layout_from_json(jpc._layout_to_json(jlay)) == play

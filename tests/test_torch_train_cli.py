@@ -1,6 +1,6 @@
 """The port's training CLI (python -m fwumious_wabbit_tpu_torch, training mode)
-on the CPU against the JAX package's CLI on its Python-ingest path
-(``--fwt_no_native``), over the same data and flags: the ``-p`` files within
+on its Python-ingest path (``--fwt_no_native``), on the CPU, against the JAX
+package's CLI on the same path, over the same data and flags: the ``-p`` files within
 2e-6 (each side rounds to %.6f) and the ``-f --save_resume`` model files
 equal in layout and header and within rtol 1e-5 / atol 1e-6 in every table
 (the same sums in other orders)."""
@@ -31,7 +31,8 @@ def run_both(tmp_path, argv):
     path) pairs."""
     out = {}
     for side, fn, extra in (("jax", jax_main, ["--fwt_no_native"]),
-                            ("port", main, ["--fwt_platform", "cpu"])):
+                            ("port", main, ["--fwt_platform", "cpu",
+                                            "--fwt_no_native"])):
         p, f = tmp_path / f"{side}.out", tmp_path / f"{side}.fwt"
         assert fn(argv + ["-p", str(p), "-f", str(f), "--save_resume", *extra]) == 0
         out[side] = (np.array([float(x) for x in p.read_text().split()]), f)
@@ -81,7 +82,8 @@ def test_resume_from_a_model_file(tmp_path):
                      "16", "-p", str(jout), "--fwt_no_native"]) == 0
     assert main(["-i", str(pf), "--data", str(more), "--fwt_batch_size", "16",
                  "-p", str(pout), "-f", str(tmp_path / "p2.fwt"),
-                 "--save_resume", "--fwt_platform", "cpu"]) == 0
+                 "--save_resume", "--fwt_platform", "cpu",
+                 "--fwt_no_native"]) == 0
     jp = np.array([float(x) for x in jout.read_text().split()])
     pp = np.array([float(x) for x in pout.read_text().split()])
     np.testing.assert_allclose(pp, jp, rtol=0, atol=2e-6)

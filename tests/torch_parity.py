@@ -111,3 +111,29 @@ def port_model(mi, params, device="cpu") -> FwModel:
     """The port's model of the port's ``mi`` with the JAX ``params``."""
     model = FwModel(mi)
     return model.load_params(params_from_numpy(to_numpy(params), model, device))
+
+
+def both_configs(csv: str, argv: list[str]):
+    """``((jax mi, jax vw), (port mi, port vw))`` of one namespace map and
+    argv, each package's own objects."""
+    jvw = VwNamespaceMap.from_string(csv)
+    pvw = port_vwmap.VwNamespaceMap.from_string(csv)
+    return ((ModelInstance.from_cmdline(build_parser().parse_args(argv), jvw), jvw),
+            (port_mi.ModelInstance.from_cmdline(
+                port_cmdline.build_parser().parse_args(argv), pvw), pvw))
+
+
+def eat_rate_stream(tmp_path, rows: int = 600) -> tuple[str, list[str], bytes]:
+    """``(namespace map, argv, text)``: the port's synthetic Eat-Rate data
+    (synthetic.generate_dataset, seed 1) with the flags of its LR+FFM
+    training configuration (synthetic.training_config: AdagradLUT at
+    power_t 0, so the batch-mean cap's host counts are on) at small
+    widths (-b 18, --ffm_bit_precision 18)."""
+    from fwumious_wabbit_tpu_torch import synthetic
+
+    data = synthetic.ensure_dataset(tmp_path, rows)
+    argv = synthetic.serving_argv()
+    argv[argv.index("-b") + 1] = "18"
+    argv[argv.index("--ffm_bit_precision") + 1] = "18"
+    return ((tmp_path / synthetic.NAMESPACE_MAP).read_text(), argv,
+            data.read_bytes())
