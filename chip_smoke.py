@@ -64,23 +64,48 @@ Phases, each raising on failure (exit code 1, and no result line):
    within 1e-5·(1+max|·|), with whether both are bit-identical; and against
    itself with ``--fwt_platform cpu`` within the bounds above;
 7b. bench.py's "text-train 1M" row: the 1,000,000-line Eat-Rate file
-   (``synthetic.ensure_dataset``, seed 1; its generation timed) trained
-   through the CLI with ``-p`` on the default path six times — as is,
-   ``--fwt_vocab off``, ``--fwt_bitpack off --fwt_vocab off``, and as is
-   again, so the default's two runs bracket the others; then with
+   (``synthetic.ensure_dataset``, seed 1, written by a child process that
+   starts after phase 2 and runs beside phases 3–7; its wait timed) trained
+   through the CLI with ``-p`` on the default path; then its first 200,000
+   lines (the same lines) five times — ``--fwt_vocab off``,
+   ``--fwt_bitpack off --fwt_vocab off``, as is, then with
    ``--fwt_pack_cache on`` twice, recording the producer's stream and
-   replaying it, each within one unit of the -p file's sixth decimal of
-   the first default run — with the ex/s of the CLI's Elapsed line, the
-   in-run counters (FWT_COUNTERS_OUT: producer busy/stall, transfer
-   busy/starve, consumer starve, dispatch, fetch wait, CPU per thread) and
-   the kernels' launches per step; then a torch.profiler window of 8
-   packed superbatches (64 steps) of the default layout on a fresh model:
-   wall, device busy, device kernels and the idle share per step, and
-   unpack_row's device kernels per superbatch; then the three kernels
-   against their plain versions at one packed step's own inputs (B=1024,
-   the C++ ingest's widths, combos in the LR ids, the cached ones for the
-   FFM values) within the bounds of phases 4 and 5, each timed beside
-   plain, with its bytes and bound;
+   replaying it, each of these two within one unit of the -p file's sixth
+   decimal of the 1M run's first 200,000 predictions — each with the ex/s
+   of the CLI's Elapsed line, the in-run counters (FWT_COUNTERS_OUT:
+   producer busy/stall, transfer busy/starve, consumer starve, dispatch,
+   fetch wait, CPU per thread) and the kernels' launches per step; then a
+   torch.profiler window of 8 packed superbatches (64 steps) of the
+   default layout on a fresh model: wall, device busy, device kernels and
+   the idle share per step, and unpack_row's device kernels per
+   superbatch; then the three kernels against their plain versions at one
+   packed step's own inputs (B=1024, the C++ ingest's widths, combos in
+   the LR ids, the cached ones for the FFM values) within the bounds of
+   phases 4 and 5, each timed beside plain, with its bytes and bound;
+7c. tower training at full width: the same tables with BASELINE config
+   3's tower (``synthetic.tower_training_config``: one ReLU layer of 16,
+   topology one), TF32 asserted off first; the 10k-line file at B=1024
+   with ``-p`` and ``-f --save_resume`` on ``--fwt_no_native`` and on the
+   default path, each on the card against the same CLI with
+   ``--fwt_platform cpu`` (predictions within 1e-5 per line; the four
+   tables and every tower w, b, w_acc, b_acc within 1e-5·(1+max|cpu|)),
+   and the default path against ``--fwt_no_native`` on the card (within one
+   unit of the -p file's sixth decimal, with whether both are
+   bit-identical); all three kernels launched on each; then ``-t -i`` of
+   the saved tower model on the card against the CPU, and the daemon
+   serving it answering 64 lines, within 2e-6; and the fused FFM backward
+   against its plain version at one tower step's own cotangent (the
+   ``g_x[:, C:]`` slice, which differs across the row);
+7d. the tower's rate: one 1M-line default-path run of the tower model
+   (ex/s, in-run counters, launches per step), and a profiler window of 64
+   packed tower steps (device busy, device kernels and the idle share per
+   step; the tower's kernels per step against 7b's window);
+7e. the record cache over the 1M file: a recording run (``-c
+   --fwt_pack_cache off``) and a reading run of the same flags, their
+   predictions bit-identical and within one unit of the -p file's sixth
+   decimal of 7b's 1M run; the codec, the cache's bytes and both runs' ex/s;
+   then ``--build_cache_without_training`` on the 10k file, whose cache
+   equals the one a recording run writes for that file;
 8. the fused FFM kernels at the main path's inputs (the serving model's
    table, the data's first 256 and 1024 lines as the CLI batches them):
    wall time per call from CUDA events and device time per call from
@@ -91,21 +116,25 @@ Phases, each raising on failure (exit code 1, and no result line):
    256-line batch) and of one full-width train step (with the kernels'
    launches per step).
 
-Each main path (6, the two training paths of 7, and each 1M run of 7b)
-runs with the kernels' launch counters set to 0 just before it and read
-just after: the FFM forward must have launched in serving, all three
-kernels in each training path. The script prints the kernel table as JSON
+Each main path (6, the two training paths of 7, each run of 7b, the two
+tower paths of 7c, the 1M run of 7d and both runs of 7e) runs with the
+kernels' launch counters set to 0 just before it and read just after: the
+FFM forward must have launched in serving, all three kernels in each
+training path. Each phase prints its seconds. The dataset's child process
+is ended before the script exits, whatever the outcome. The script prints the kernel table as JSON
 (each kernel's launches, error, times, bound, launches per serving batch;
 per train step from the 10k --fwt_no_native run and per packed train
 step from the first 1M default run, both main paths; its launches on the
 10k default path; and its error, times, bytes and bound at the default
-path's step, ``default_path_step``; no single PyTorch call computes any of
-the three, so library_ms is null), the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``. It needs one card and no network.
+path's step, ``default_path_step``; its launches per tower step; no single
+PyTorch call computes any of the three, so library_ms is null), the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``. It needs
+one card and no network.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import socket
@@ -129,6 +158,21 @@ PRED_UNIT = 1e-6 * (1 + 1e-6)
 
 class SmokeError(RuntimeError):
     pass
+
+
+PHASE_SECONDS: dict = {}
+CHILDREN: list = []  # processes this script started; ended before it exits
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Times one phase and prints its seconds when it ends."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+        print(f"phase {name}: {PHASE_SECONDS[name]:.2f} s", flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -220,29 +264,59 @@ def time_ms(fn, reps: int = 2000) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_us(call, reps: int = 50) -> dict:
+PROFILE_PAD_S = 0.05  # idle host time at each end of a profiler window
+PROFILE_TRIES = 3
+
+
+def device_rows(run, what: str) -> tuple:
+    """``(rows, out)``: ``out`` what ``run()`` returned, and ``rows`` the
+    device kernels torch.profiler saw while it ran, as ``(key, device µs
+    in all, count)``; device-side events only, since the aten ops that
+    launched them carry the same time again. The profiler keeps a device
+    record only when its timestamp, converted to the host's clock, falls
+    inside the window, so each window is padded with PROFILE_PAD_S of idle
+    host time at both ends: a window of a few hundred µs is otherwise lost
+    whole to a small offset between the clocks. A window that still holds
+    no device time is run again, up to PROFILE_TRIES windows, each
+    printed; then the phase fails."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            time.sleep(PROFILE_PAD_S)
+            out = run()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        rows = [(e.key, float(getattr(e, "self_device_time_total", 0.0) or 0.0), e.count)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(dt for _, dt, _ in rows) > 0:
+            return rows, out
+        print(f"profiler: no device time in {what} (window {attempt} of "
+              f"{PROFILE_TRIES})", flush=True)
+    raise SmokeError(f"the profiler saw no device time in {what} in "
+                     f"{PROFILE_TRIES} windows")
+
+
+def device_us(call, what: str, reps: int = 50) -> dict:
     """Device time per call of ``call`` from torch.profiler, with the
     device kernels it launches per call and its three largest kernels."""
     import torch
 
     call()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+
+    def run():
         for _ in range(reps):
             call()
-        torch.cuda.synchronize()
-    total, count, rows = 0.0, 0, []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dt = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
-        total += dt
-        count += e.count
-        rows.append((round(dt / reps, 3), e.key[:50]))
-    check(total > 0, "the profiler saw no device time")
-    return {"device_us": total / reps, "kernels_per_call": count / reps,
-            "largest": sorted(rows, reverse=True)[:3]}
+
+    rows, _ = device_rows(run, what)
+    return {"device_us": sum(dt for _, dt, _ in rows) / reps,
+            "kernels_per_call": sum(n for _, _, n in rows) / reps,
+            "largest": sorted(((round(dt / reps, 3), key[:50]) for key, dt, _ in rows),
+                              reverse=True)[:3]}
 
 
 def agrees(got, ref) -> tuple:
@@ -396,10 +470,11 @@ def ffm_timing(path: Path, data: Path, device) -> dict:
         for order in ("plain", "kernel", "kernel", "plain"):
             for name, call in calls.items():
                 if ("plain" in name) == (order == "plain"):
-                    wall[name].append(time_ms(call, reps=300 if "plain" in name else 2000))
+                    wall[name].append(time_ms(call, reps=100 if "plain" in name else 1000))
         res = {"N": int(ids.shape[1]),
                "wall_us": {name: min(v) * 1e3 for name, v in wall.items()},
-               "device": {name: device_us(call) for name, call in calls.items()},
+               "device": {name: device_us(call, f"{name} at B={B}")
+                          for name, call in calls.items()},
                "fwd_bound": ffm_work(ids, vals, fields, F, k, spec, False)}
         if B == TRAIN_BATCH:
             res["bwd_bound"] = ffm_work(ids, vals, fields, F, k, spec, True)
@@ -530,7 +605,7 @@ def update_phase(device) -> dict:
                 w, acc, rid, g, lut, 0.1, 0.0, 1.0), reps=200))
     return {"max_abs_err": max_err, "ms": min(ms), "plain_ms": min(plain_ms),
             "unique_rows": int(torch.unique(rid).numel()),
-            "device": update_device_us(call)}
+            "device": update_device_us(call, "the full-width Zipf update")}
 
 
 def schedule_cases(device) -> float:
@@ -640,7 +715,7 @@ def lut_table_check(device) -> None:
         check(differ == 0, "the plain LUT rate on the card is not the table")
 
 
-def update_device_us(call, reps: int = 20) -> dict:
+def update_device_us(call, what: str, reps: int = 20) -> dict:
     """Device time per call of ``call`` (one sparse_adagrad_update) from
     torch.profiler: the kernel's two passes, and the rest of what the
     wrapper launches, which is the stable sort; and the sort's share of the
@@ -649,25 +724,23 @@ def update_device_us(call, reps: int = 20) -> dict:
 
     call()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+
+    def run():
         for _ in range(reps):
             call()
-        torch.cuda.synchronize()
+
+    rows, _ = device_rows(run, what)
     pass1 = pass2 = sort = 0.0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dt = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
-        if "tile_kernel" in e.key:
+    for key, dt, _ in rows:
+        if "tile_kernel" in key:
             pass1 += dt
-        elif "crossing_kernel" in e.key:
+        elif "crossing_kernel" in key:
             pass2 += dt
         else:
             sort += dt
     total = pass1 + pass2 + sort
     check(pass1 > 0 and pass2 > 0, "the profiler saw no device time for the "
-                                   "sparse update kernels")
+                                   f"sparse update kernels in {what}")
     return {"device_us": total / reps, "kernel_us": (pass1 + pass2) / reps,
             "pass1_us": pass1 / reps, "pass2_us": pass2 / reps,
             "sort_us": sort / reps, "sort_share": sort / total}
@@ -895,27 +968,19 @@ def layer_breakdown(path: Path, lines: list[bytes], device) -> dict:
             model.predict(h2d(batch_dict(batcher.make_batch(tes[:1])))).cpu()
         t["one_line_batch_h2d_forward_d2h_us"] = (time.perf_counter() - t0) / 100 * 1e6
 
-        prof_rows = []
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        launches0 = ffm.LAUNCHES
-        with torch.profiler.profile(activities=acts) as prof:
+        def run():
+            launches0 = ffm.LAUNCHES
             t0 = time.perf_counter()
             for b in db:
                 model.predict(b)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        t["ffm_fused_launches_per_batch"] = (ffm.LAUNCHES - launches0) / n_b
-        dev_total, n_kernels = 0.0, 0
-        for e in prof.key_averages():
-            # device-side events only: the aten ops that launched them carry
-            # the same time again
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            dt = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
-            prof_rows.append((dt, e.key[:60], e.count))
-            dev_total += dt
-            n_kernels += e.count
-        prof_rows.sort(reverse=True)
+            return time.perf_counter() - t0, ffm.LAUNCHES - launches0
+
+        rows, (wall, launches) = device_rows(run, "the serving batches")
+        t["ffm_fused_launches_per_batch"] = launches / n_b
+        prof_rows = sorted(((dt, key[:60], n) for key, dt, n in rows), reverse=True)
+        dev_total = sum(dt for _, dt, _ in rows)
+        n_kernels = sum(n for _, _, n in rows)
         t["profiled_wall_us_per_batch"] = wall / n_b * 1e6
         t["device_busy_us_per_batch"] = dev_total / n_b
         t["device_kernels_per_batch"] = n_kernels / n_b
@@ -928,13 +993,14 @@ def layer_breakdown(path: Path, lines: list[bytes], device) -> dict:
 
 
 class ElapsedLog:
-    """Captures the CLI's ``Elapsed: … (N ex/s)`` log record."""
+    """Captures the port's log records: the CLI's ``Elapsed: … (N ex/s)``,
+    and what the loop and the producer say of the caches they use."""
 
     def __init__(self):
         import logging
 
         self.records: list[str] = []
-        self.logger = logging.getLogger("fwumious_wabbit_tpu_torch.train.loop")
+        self.logger = logging.getLogger("fwumious_wabbit_tpu_torch")
         self.handler = logging.Handler()
         self.handler.emit = lambda r: self.records.append(r.getMessage())
 
@@ -955,8 +1021,10 @@ class ElapsedLog:
         raise SmokeError("the CLI logged no Elapsed line")
 
 
-def train_cli(data: Path, tag: str, extra=(), save: bool = True) -> tuple:
-    """One training run through the port's CLI: (predictions, model path or
+def train_cli(data: Path, tag: str, extra=(), save: bool = True,
+              base=None) -> tuple:
+    """One training run through the port's CLI with the model flags
+    ``base`` (the LR+FFM k=8 ones by default): (predictions, model path or
     None, ex/s from the CLI's log)."""
     import numpy as np
 
@@ -965,7 +1033,7 @@ def train_cli(data: Path, tag: str, extra=(), save: bool = True) -> tuple:
 
     out = data.with_name(f"chip_smoke_train_{tag}.out")
     fwt = data.with_name(f"chip_smoke_train_{tag}.fwt") if save else None
-    argv = synthetic.serving_argv() + [
+    argv = list(base or synthetic.serving_argv()) + [
         "--data", str(data), "--fwt_batch_size", str(TRAIN_BATCH),
         "-p", str(out), *extra]
     if save:
@@ -998,12 +1066,12 @@ def reset_launch_counts() -> None:
     ffm.LAUNCHES = ffm.BWD_LAUNCHES = sparse_update.LAUNCHES = 0
 
 
-def trained_path(data: Path, tag: str, extra=()) -> dict:
+def trained_path(data: Path, tag: str, extra=(), base=None) -> dict:
     """One full-width training run through the CLI on the card, a main path:
     the launch counts set to 0 just before it and read just after, each
     kernel launched at least once."""
     reset_launch_counts()
-    preds, fwt, ex_s = train_cli(data, tag, extra)
+    preds, fwt, ex_s = train_cli(data, tag, extra, base=base)
     launches = launch_counts()
     print(f"kernel launches on the training path ({tag}): "
           f"{json.dumps(launches)}", flush=True)
@@ -1022,20 +1090,37 @@ def valid_preds(a) -> bool:
     return bool(np.isfinite(a).all() and ((a >= 0) & (a <= 1)).all())
 
 
+def model_tensors(model) -> dict:
+    """The four tables and, with a tower, every layer's and the readout's
+    w, b, w_acc and b_acc, by name."""
+    out = {k: getattr(model, k) for k in ("lr_w", "lr_acc", "ffm_w", "ffm_acc")}
+    if model.has_nn:
+        for i, layer in enumerate([*model.layers, model.final]):
+            where = "final" if i == len(model.layers) else f"nn[{i}]"
+            out.update({f"{where}.{k}": v for k, v in layer.tensors().items()})
+    return out
+
+
 def compare_runs(what: str, got: dict, want: dict, pred_bound: float) -> dict:
-    """Predictions within ``pred_bound`` per line and the four tables of the
-    two model files within 1e-5·(1+max|want|); whether both are bit for bit
-    equal."""
+    """Predictions within ``pred_bound`` per line and the four tables (and
+    every tower tensor) of the two model files within 1e-5·(1+max|want|);
+    whether both are bit for bit equal."""
     from fwumious_wabbit_tpu_torch.persistence.model_file import load_model
 
     pred_err = float(abs(got["preds"] - want["preds"]).max())
     check(pred_err <= pred_bound, f"{what}: predictions differ by {pred_err} "
                                   f"> {pred_bound}")
-    _, _, a_model = load_model(got["fwt"], device="cpu")
+    identical = got["fwt"].read_bytes() == want["fwt"].read_bytes()
     _, _, b_model = load_model(want["fwt"], device="cpu")
-    table_err, identical = {}, got["fwt"].read_bytes() == want["fwt"].read_bytes()
-    for key in ("lr_w", "lr_acc", "ffm_w", "ffm_acc"):
-        a, b = getattr(a_model, key), getattr(b_model, key)
+    b_tensors = model_tensors(b_model)
+    # equal files hold equal tensors: only a file that differs is read twice
+    a_tensors = (b_tensors if identical else
+                 model_tensors(load_model(got["fwt"], device="cpu")[2]))
+    check(set(a_tensors) == set(b_tensors), f"{what}: the model files hold "
+                                            f"other tensors")
+    table_err = {}
+    for key, b in b_tensors.items():
+        a = a_tensors[key]
         err = (a - b).abs().max().item()
         bound = TRAIN_ATOL * (1.0 + b.abs().max().item())
         table_err[key] = err
@@ -1081,78 +1166,121 @@ def native_training_phase(data: Path, python_gpu: dict) -> dict:
             "vs_cpu": vs_cpu, "logloss": logloss(gpu["preds"], data)}
 
 
-# the default first and last, so its two runs bracket the three settings;
-# then the pack cache recorded and replayed (--fwt_pack_cache on)
-MILLION_RUNS = {"default": [], "vocab_off": ["--fwt_vocab", "off"],
-                "bitpack_off_vocab_off": ["--fwt_bitpack", "off", "--fwt_vocab", "off"],
-                "default_again": [],
-                "pack_cache_record": ["--fwt_pack_cache", "on"],
-                "pack_cache_replay": ["--fwt_pack_cache", "on"]}
+# the settings and the pack cache, each over the 1M file's first 200,000
+# lines; the pack cache recorded (no file before it), then replayed
+SETTINGS_RUNS = {"vocab_off": ["--fwt_vocab", "off"],
+                 "bitpack_off_vocab_off": ["--fwt_bitpack", "off", "--fwt_vocab", "off"],
+                 "default_again": [],
+                 "pack_cache_record": ["--fwt_pack_cache", "on"],
+                 "pack_cache_replay": ["--fwt_pack_cache", "on"]}
+SETTINGS_LINES = 200_000
 
 
-def million_phase(directory: Path, n_lines: int = 1_000_000) -> dict:
+def million_run(path: Path, name: str, n_lines: int, extra=(), base=None) -> tuple:
+    """One default-path run through the CLI over ``path`` with -p, a main
+    path: the launch counts set to 0 just before it and read just after,
+    each kernel launched; its ex/s from the CLI's Elapsed line, its in-run
+    counters (FWT_COUNTERS_OUT) and the launches per step. Returns
+    ``(predictions, run, the CLI's log messages)``."""
+    counters_path = path.parent / "chip_smoke_counters.json"
+    os.environ["FWT_COUNTERS_OUT"] = str(counters_path)
+    reset_launch_counts()
+    try:
+        with ElapsedLog() as el:
+            preds, _, ex_s = train_cli(path, name, extra, save=False, base=base)
+    finally:
+        del os.environ["FWT_COUNTERS_OUT"]
+    launches = launch_counts()
+    for kernel, n in launches.items():
+        check(n > 0, f"run {name} never launched the {kernel} kernel")
+    res = json.loads(counters_path.read_text())
+    check(res["examples"] == n_lines and preds.shape == (n_lines,)
+          and valid_preds(preds), f"run {name}: {res['examples']} examples, "
+                                  f"{preds.shape} predictions for {n_lines} lines")
+    steps = -(-n_lines // TRAIN_BATCH)
+    run = {"ex_s": ex_s, "elapsed_s": res["elapsed"], "lines": n_lines,
+           "logloss": logloss(preds, path),
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "counters": res["counters"]}
+    print(f"timing: train {n_lines:,} lines ({name}: {' '.join(extra) or 'the default'}) "
+          f"at B={TRAIN_BATCH}: {ex_s:.0f} ex/s (CLI Elapsed line), "
+          f"logloss {run['logloss']:.6f}; kernel launches per step "
+          f"{json.dumps(run['launches_per_step'])}; in-run counters "
+          f"{json.dumps(res['counters'])}", flush=True)
+    return preds, run, el.records
+
+
+def start_dataset(directory: Path, n_lines: int):
+    """Writes the ``n_lines`` Eat-Rate file (synthetic.ensure_dataset, seed
+    1) in a child process, so that its generation (pure Python, ~12 s for
+    1M lines) runs beside the phases before 7b. Started after the 10k file
+    and its namespace map exist, which the child then leaves alone."""
+    import subprocess
+
+    code = ("import sys, time\n"
+            "t0 = time.perf_counter()\n"
+            "from fwumious_wabbit_tpu_torch import synthetic\n"
+            f"synthetic.ensure_dataset({str(directory)!r}, {n_lines})\n"
+            "print(time.perf_counter() - t0)\n")
+    child = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+    CHILDREN.append(child)
+    return child
+
+
+def million_phase(directory: Path, n_lines: int = 1_000_000,
+                  dataset=None) -> dict:
     """bench.py's "text-train 1M" row on the default path: the 1,000,000-line
-    Eat-Rate file (synthetic.ensure_dataset, seed 1; its generation timed),
-    trained through the CLI with -p on the card — the default, --fwt_vocab
-    off, --fwt_bitpack off --fwt_vocab off, the default again, then with
-    --fwt_pack_cache on twice: the first run records the producer's stream
-    (no cache file before it), the second replays it (its log says so) —
-    each a main path, with its ex/s from the CLI's Elapsed line, its in-run
-    counters (FWT_COUNTERS_OUT) and the kernels' launches per train step.
-    The two pack-cache runs' predictions within one unit of the -p file's
-    sixth decimal of the first default run's, with whether they are
+    Eat-Rate file (synthetic.ensure_dataset, seed 1; its generation timed,
+    in the child ``dataset`` of :func:`start_dataset` when given) trained
+    through the CLI with -p on the card; then its first 200,000
+    lines with --fwt_vocab off, --fwt_bitpack off --fwt_vocab off, the
+    default again, and --fwt_pack_cache on twice: the first run records the
+    producer's stream (no cache file before it), the second replays it (its
+    log says so); each a main path (:func:`million_run`). The two
+    pack-cache runs' predictions within one unit of the -p file's sixth
+    decimal of the 1M run's first 200,000, with whether they are
     bit-identical."""
     from fwumious_wabbit_tpu_torch import synthetic
     from fwumious_wabbit_tpu_torch.train import pack_cache
 
     t0 = time.perf_counter()
+    where = "here"
+    if dataset is not None:
+        out, err = dataset.communicate(timeout=600)
+        check(dataset.returncode == 0, f"the dataset's child process exited "
+                                       f"{dataset.returncode}: {err[-2000:]}")
+        where = (f"in a child process beside the earlier phases, "
+                 f"{float(out.split()[-1]):.2f} s of its time; waited for it")
     big = synthetic.ensure_dataset(directory, n_lines)
     gen_s = time.perf_counter() - t0
     print(f"dataset: {n_lines:,} Eat-Rate lines ({big.stat().st_size} bytes) "
-          f"ready in {gen_s:.2f} s", flush=True)
-    out = {"gen_s": gen_s, "path": big, "runs": {}}
-    counters_path = directory / "chip_smoke_counters.json"
-    fwpack = Path(pack_cache.pack_cache_path_for(big))
+          f"ready in {gen_s:.2f} s ({where})", flush=True)
+    mid = directory / f"chip_smoke_head_{SETTINGS_LINES}.vw"
+    with open(big, "rb") as fh:
+        mid.write_bytes(b"".join(fh.readline() for _ in range(SETTINGS_LINES)))
+    default_preds, run, _ = million_run(big, "1m_default", n_lines)
+    out = {"gen_s": gen_s, "path": big, "preds": default_preds,
+           "runs": {"default": run}}
+    head_preds = default_preds[:SETTINGS_LINES]
+    fwpack = Path(pack_cache.pack_cache_path_for(mid))
     fwpack.unlink(missing_ok=True)
-    for name, extra in MILLION_RUNS.items():
-        os.environ["FWT_COUNTERS_OUT"] = str(counters_path)
-        reset_launch_counts()
-        try:
-            with ElapsedLog() as el:
-                preds, _, ex_s = train_cli(big, f"1m_{name}", extra, save=False)
-        finally:
-            del os.environ["FWT_COUNTERS_OUT"]
-        launches = launch_counts()
-        replayed = any("using pack cache" in r for r in el.records)
+    for name, extra in SETTINGS_RUNS.items():
+        preds, run, records = million_run(mid, f"200k_{name}", SETTINGS_LINES, extra)
+        replayed = any("using pack cache" in r for r in records)
         check(replayed == (name == "pack_cache_replay"),
-              f"1M run {name}: replayed a pack cache: {replayed}")
-        if name == "default":
-            default_preds = preds
-        elif name.startswith("pack_cache"):
-            check(fwpack.is_file(), f"1M run {name}: no pack cache at {fwpack}")
-            err = float(abs(preds - default_preds).max())
-            check(err <= PRED_UNIT, f"1M run {name}: predictions differ from "
-                                    f"the default run's by {err}")
-            print(f"1M run {name}: predictions max |diff| from the default "
-                  f"run's {err!r}, bit-identical: "
-                  f"{bool((preds == default_preds).all())}", flush=True)
-        for kernel, n in launches.items():
-            check(n > 0, f"1M run {name} never launched the {kernel} kernel")
-        res = json.loads(counters_path.read_text())
-        check(res["examples"] == n_lines and preds.shape == (n_lines,)
-              and valid_preds(preds), f"1M run {name}: {res['examples']} "
-                                      f"examples, {preds.shape} predictions")
-        steps = -(-n_lines // TRAIN_BATCH)
-        run = {"ex_s": ex_s, "elapsed_s": res["elapsed"],
-               "logloss": logloss(preds, big),
-               "launches_per_step": {k: v / steps for k, v in launches.items()},
-               "counters": res["counters"]}
+              f"200k run {name}: replayed a pack cache: {replayed}")
+        err = float(abs(preds - head_preds).max())
+        same = bool((preds == head_preds).all())
+        if name.startswith("pack_cache"):
+            check(fwpack.is_file(), f"200k run {name}: no pack cache at {fwpack}")
+            check(err <= PRED_UNIT, f"200k run {name}: predictions differ from "
+                                    f"the 1M run's first 200,000 by {err}")
+        print(f"200k run {name}: predictions max |diff| from the 1M run's "
+              f"first 200,000 {err!r}, bit-identical: {same}", flush=True)
+        run.update(pred_err_vs_1m=err, bit_identical_to_1m=same)
         out["runs"][name] = run
-        print(f"timing: train 1M lines ({name}: {' '.join(extra) or 'the default'}) "
-              f"at B={TRAIN_BATCH}: {ex_s:.0f} ex/s (CLI Elapsed line), "
-              f"logloss {run['logloss']:.6f}; kernel launches per step "
-              f"{json.dumps(run['launches_per_step'])}; in-run counters "
-              f"{json.dumps(res['counters'])}", flush=True)
     return out
 
 
@@ -1174,16 +1302,16 @@ def packed_step_profile(big: Path, device, n_groups: int = 8) -> tuple:
     producer packs the first 16·8·1024 lines of ``big`` as the CLI does
     (K=8, B=1024, bitpack and vocab on), the superbatches of the last layout
     go to the card through the transfer stage, and ``n_groups`` of them run
-    through make_packed_train_step (each 8 steps) on a fresh model. Per
-    step: wall (host clock, the card synchronized at the end; once without
-    and once under the profiler), device busy, device kernels and the idle
-    share in the profiled window; and unpack_row alone per superbatch (its
+    through make_packed_train_step (each 8 steps) on a fresh model
+    (:func:`profile_window`); and unpack_row alone per superbatch (its
     device kernels: the count a fused unpack kernel would replace). The
     kernels' launches per step are the 1M default run's, not this
     window's. Then the three kernels against their plain versions at one
     packed step's own inputs (:func:`ffm_step_check`,
-    :func:`step_update_check`). Returns ``(profile, kernels)``."""
-    import numpy as np
+    :func:`step_update_check`). Returns ``(profile, kernels, packed)``,
+    ``packed`` the layout, superbatches and vocabulary snapshot on the card,
+    which the tower's window (7d) runs again: the tower leaves the
+    producer's stream as it is."""
     import torch
 
     from fwumious_wabbit_tpu_torch import synthetic
@@ -1224,6 +1352,33 @@ def packed_step_profile(big: Path, device, n_groups: int = 8) -> tuple:
     for g in groups:
         (b,), ev = tr.stage([g[1]])
         bufs.append(arrived(b, ev))
+    res = profile_window(model, lay, bufs, vocab, K)
+    plan = packed._Plan(lay, device)
+    unpack = device_us(lambda: packed.unpack_row(bufs[0], lay, vocab, plan),
+                       "unpack_row")
+    res.update(unpack_device_us_per_superbatch=unpack["device_us"],
+               unpack_kernels_per_superbatch=unpack["kernels_per_call"])
+    # the kernels at the default path's own inputs: the first step of the
+    # last superbatch, unpacked as the packed step unpacks it, on the model
+    # these superbatches trained
+    bd = {key: v[0] for key, v in packed.unpack_row(bufs[-1], lay, vocab, plan).items()}
+    what = "the default path's train step"
+    kernels = {"ffm": ffm_step_check(model, bd, what),
+               "update": step_update_check(model, bd, what)}
+    del model, bd
+    torch.cuda.empty_cache()
+    return res, kernels, (lay, bufs, vocab)
+
+
+def profile_window(model, lay, bufs: list, vocab, K: int) -> dict:
+    """The packed superbatches ``bufs`` through make_packed_train_step on
+    ``model``, per step: wall (host clock, the card synchronized at the
+    end; once without and once under the profiler), device busy, device
+    kernels and the idle share in the profiled window."""
+    import torch
+
+    from fwumious_wabbit_tpu_torch.train import packed
+
     step = packed.make_packed_train_step(model, lay, K)
     step(bufs[0], vocab).cpu()  # warm
     torch.cuda.synchronize()
@@ -1232,59 +1387,41 @@ def packed_step_profile(big: Path, device, n_groups: int = 8) -> tuple:
         step(b, vocab)
     torch.cuda.synchronize()
     quiet = time.perf_counter() - t0
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+
+    def run():
         t0 = time.perf_counter()
         for b in bufs:
             step(b, vocab)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        return time.perf_counter() - t0
+
+    prof_rows, wall = device_rows(run, "the packed steps")
     n_steps = len(bufs) * K
-    dev_total, n_kernels, rows = 0.0, 0, []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dt = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
-        dev_total += dt
-        n_kernels += e.count
-        rows.append((round(dt / n_steps, 2), e.key[:60], e.count))
-    check(dev_total > 0, "the profiler saw no device time in the packed steps")
-    plan = packed._Plan(lay, device)
-    unpack = device_us(lambda: packed.unpack_row(bufs[0], lay, vocab, plan))
-    res = {"K": K, "superbatches": len(bufs), "words": lay.words,
-           "bytes_per_example": lay.words * 4 / TRAIN_BATCH,
-           "wall_us_per_step": quiet / n_steps * 1e6,
-           "profiled_wall_us_per_step": wall / n_steps * 1e6,
-           "device_busy_us_per_step": dev_total / n_steps,
-           "device_kernels_per_step": n_kernels / n_steps,
-           "device_idle_share": 1.0 - dev_total / (wall * 1e6),
-           "unpack_device_us_per_superbatch": unpack["device_us"],
-           "unpack_kernels_per_superbatch": unpack["kernels_per_call"],
-           "largest": sorted(rows, reverse=True)[:8]}
-    # the kernels at the default path's own inputs: the first step of the
-    # last superbatch, unpacked as the packed step unpacks it, on the model
-    # these superbatches trained
-    bd = {key: v[0] for key, v in packed.unpack_row(bufs[-1], lay, vocab, plan).items()}
-    what = "the default path's train step"
-    kernels = {"ffm": ffm_step_check(model, bd, what),
-               "update": step_update_check(model, bd, what)}
-    del model, bufs, bd
-    torch.cuda.empty_cache()
-    return res, kernels
+    dev_total = sum(dt for _, dt, _ in prof_rows)
+    n_kernels = sum(n for _, _, n in prof_rows)
+    rows = [(round(dt / n_steps, 2), key[:60], n) for key, dt, n in prof_rows]
+    return {"K": K, "superbatches": len(bufs), "words": lay.words,
+            "bytes_per_example": lay.words * 4 / TRAIN_BATCH,
+            "wall_us_per_step": quiet / n_steps * 1e6,
+            "profiled_wall_us_per_step": wall / n_steps * 1e6,
+            "device_busy_us_per_step": dev_total / n_steps,
+            "device_kernels_per_step": n_kernels / n_steps,
+            "device_idle_share": 1.0 - dev_total / (wall * 1e6),
+            "largest": sorted(rows, reverse=True)[:8]}
 
 
-def train_batches(data: Path, device, n_b: int) -> tuple:
+def train_batches(data: Path, device, n_b: int, config=None) -> tuple:
     """``(model, host batches, host timings)``: a fresh full-width training
-    model on ``device`` (synthetic.training_config) and the first n_b
-    1024-line batches of ``data`` as the CLI makes them, host counts
-    included."""
+    model on ``device`` (``config``, synthetic.training_config by default)
+    and the first n_b 1024-line batches of ``data`` as the CLI makes them,
+    host counts included."""
     from fwumious_wabbit_tpu_torch import synthetic
     from fwumious_wabbit_tpu_torch.ingest import Batcher, FeatureTranslator, VowpalParser
     from fwumious_wabbit_tpu_torch.models.model import FwModel
     from fwumious_wabbit_tpu_torch.train import step as st
     from fwumious_wabbit_tpu_torch.train.loop import np_counts
 
-    mi, vw = synthetic.training_config(data)
+    mi, vw = (config or synthetic.training_config)(data)
     model = FwModel(mi)
     model.load_params(model.init_params(device))
     parser, ft, batcher = VowpalParser(vw), FeatureTranslator(mi), Batcher(TRAIN_BATCH)
@@ -1337,8 +1474,8 @@ def step_update_check(model, bd: dict, what: str) -> dict:
     from fwumious_wabbit_tpu_torch.train import step as st
 
     leaves = st.gather(model, bd)
-    logit, _, dlogit = st.forward(model, bd, leaves)
-    grads = st.backward(logit, leaves, dlogit)
+    x, _, dlogit, residuals = st.forward(model, bd, leaves)
+    grads, _ = st.backward(model, x, leaves, dlogit, residuals)
     calls = {
         "lr": (model.opt_lr, model.lr_w, model.lr_acc,
                st.lr_update_rows(model, bd, grads[0])),
@@ -1392,7 +1529,7 @@ def step_update_check(model, bd: dict, what: str) -> dict:
                 plain_ms.append(time_ms(lambda: adagrad.apply_rows_plain(
                     w2, a2, rid, grows, opt.kind, *args[:3]), reps=200))
         out[f"{name}_ms"], out[f"{name}_plain_ms"] = min(ms), min(plain_ms)
-        out[f"{name}_device"] = update_device_us(call)
+        out[f"{name}_device"] = update_device_us(call, f"the {name} update at {what}")
         out[f"{name}_K"] = rid.shape[0]
         out["ms"] += min(ms)
         out["plain_ms"] += min(plain_ms)
@@ -1445,8 +1582,9 @@ def ffm_step_check(model, bd: dict, what: str) -> dict:
             else:
                 plain_ms.append(time_ms(plain, reps=100))
         out[name] = {"max_abs_err": err, "ms": min(ms), "plain_ms": min(plain_ms),
-                     "device_us": device_us(kernel)["device_us"],
-                     "plain_device_us": device_us(plain)["device_us"],
+                     "device_us": device_us(kernel, f"fused {name} at {what}")["device_us"],
+                     "plain_device_us": device_us(
+                         plain, f"plain {name} at {what}")["device_us"],
                      "work": ffm_work(ids, vals, fields, F, k, spec, name == "bwd")}
     print(f"kernel ffm_fused at {what} (B={B} N={N} F={F} k={k}, the model's "
           f"own table): " + json.dumps(out), flush=True)
@@ -1478,8 +1616,8 @@ def train_breakdown(data: Path, device, n_b: int = 8) -> dict:
     def layered(bd_host):
         bd = timed("h2d", lambda: st.to_device(bd_host, st.TRAIN_KEYS, device))
         leaves = timed("gather", lambda: st.gather(model, bd))
-        logit, p, dlogit = timed("forward", lambda: st.forward(model, bd, leaves))
-        grads = timed("backward", lambda: st.backward(logit, leaves, dlogit))
+        x, p, dlogit, res = timed("forward", lambda: st.forward(model, bd, leaves))
+        grads, _ = timed("backward", lambda: st.backward(model, x, leaves, dlogit, res))
         (lr_rid, lr_g, _), (ffm_rid, ffm_g, _) = timed(
             "count_scaling_and_dedup",
             lambda: (st.lr_update_rows(model, bd, grads[0]),
@@ -1504,23 +1642,17 @@ def train_breakdown(data: Path, device, n_b: int = 8) -> dict:
     torch.cuda.synchronize()
     t["train_step_wall_us"] = (time.perf_counter() - t0) / n_b * 1e6
 
-    prof_rows = []
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    def run():
         t0 = time.perf_counter()
         for b in hb:
             step(b)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev_total, n_kernels = 0.0, 0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dt = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
-        prof_rows.append((dt, e.key[:60], e.count))
-        dev_total += dt
-        n_kernels += e.count
-    prof_rows.sort(reverse=True)
+        return time.perf_counter() - t0
+
+    rows, wall = device_rows(run, "the train steps")
+    prof_rows = sorted(((dt, key[:60], n) for key, dt, n in rows), reverse=True)
+    dev_total = sum(dt for _, dt, _ in rows)
+    n_kernels = sum(n for _, _, n in rows)
     t["profiled_wall_us_per_step"] = wall / n_b * 1e6
     t["device_busy_us_per_step"] = dev_total / n_b
     t["device_kernels_per_step"] = n_kernels / n_b
@@ -1528,6 +1660,191 @@ def train_breakdown(data: Path, device, n_b: int = 8) -> dict:
     t["device_kernels"] = [(name, count, round(dt / n_b, 2))
                            for dt, name, count in prof_rows[:12]]
     return t
+
+
+def tf32_off() -> None:
+    """f32 products at full precision, as the JAX model's Precision.HIGHEST:
+    no TF32 in torch.matmul on the card."""
+    import torch
+
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32,
+          f"TF32 is allowed (float32 matmul precision "
+          f"{torch.get_float32_matmul_precision()!r}, cuda.matmul.allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32})")
+    print("TF32: off (float32 matmul precision 'highest', "
+          "cuda.matmul.allow_tf32 False, cudnn.allow_tf32 False)", flush=True)
+
+
+def tower_phase(data: Path, device) -> dict:
+    """7c: tower training at full width through the CLI (the tower model's
+    flags, synthetic.tower_argv), on --fwt_no_native and on the default
+    path, each a main path on the card against the same CLI on the CPU, and
+    against each other; ``-t -i`` and the daemon on the saved model; the
+    FFM backward at a tower step's own cotangent."""
+    from fwumious_wabbit_tpu_torch import synthetic
+    from fwumious_wabbit_tpu_torch.train.loop import main
+
+    tf32_off()
+    base = synthetic.tower_argv()
+    py = trained_path(data, "tower_python_gpu", ["--fwt_no_native"], base)
+    cpu_preds, cpu_fwt, py_cpu_ex_s = train_cli(
+        data, "tower_python_cpu", ["--fwt_no_native", "--fwt_platform", "cpu"],
+        base=base)
+    py_vs_cpu = compare_runs("tower training --fwt_no_native, card vs CPU", py,
+                             {"preds": cpu_preds, "fwt": cpu_fwt}, TRAIN_ATOL)
+    nat = trained_path(data, "tower_native_gpu", [], base)
+    vs_python = compare_runs("tower training, default path vs --fwt_no_native on "
+                             "the card", nat, py, PRED_UNIT)
+    cpu_preds, cpu_fwt, nat_cpu_ex_s = train_cli(
+        data, "tower_native_cpu", ["--fwt_platform", "cpu"], base=base)
+    vs_cpu = compare_runs("tower training, default path, card vs CPU", nat,
+                          {"preds": cpu_preds, "fwt": cpu_fwt}, TRAIN_ATOL)
+    ll = logloss(nat["preds"], data)
+    print(f"tower training progressive logloss over {nat['preds'].size} lines: "
+          f"card {ll!r}, CPU {logloss(cpu_preds, data)!r}", flush=True)
+
+    lines = data.read_bytes().splitlines(keepends=True)
+    want = plain_predictions(nat["fwt"], data)
+    out = data.with_name("chip_smoke_tower_preds.out")
+    rc = main(["-t", "-i", str(nat["fwt"]), "--data", str(data), "-p", str(out)])
+    check(rc == 0, f"-t -i predict of the tower model exited {rc}")
+    compare(f"tower model -t -i predict ({len(lines)} lines)",
+            out.read_bytes().splitlines(keepends=True), want)
+    port = free_port()
+    start_daemon(nat["fwt"], port)
+    c = Client(port)
+    compare("tower model daemon request/response (64 lines)",
+            [c.send(line) for line in lines[:64]], want[:64])
+    c.close()
+    return {"python": {**py, "cpu_ex_s": py_cpu_ex_s, **py_vs_cpu},
+            "native": {**nat, "cpu_ex_s": nat_cpu_ex_s, "vs_python": vs_python,
+                       "vs_cpu": vs_cpu, "logloss": ll},
+            "cotangent": tower_cotangent_check(data, device)}
+
+
+def tower_cotangent_check(data: Path, device) -> dict:
+    """The fused FFM backward against its plain version at the cotangent a
+    tower step gives it: after one full-width tower step, the next batch's
+    ``g_x[:, C:]`` from the manual tower backward (train/step.py
+    tower_backward), which differs across the row, unlike the tower-less
+    step's repeated dlogit. Bounds of :func:`agrees`; padded positions of
+    the gradient exactly 0."""
+    import torch
+
+    from fwumious_wabbit_tpu_torch import synthetic
+    from fwumious_wabbit_tpu_torch.ops import ffm
+    from fwumious_wabbit_tpu_torch.train import step as st
+
+    model, hb, _ = train_batches(data, device, 2, synthetic.tower_training_config)
+    st.make_train_step(model)(hb[0])
+    bd = st.to_device(hb[1], st.TRAIN_KEYS, device)
+    leaves = st.gather(model, bd)
+    _, _, dlogit, residuals = st.forward(model, bd, leaves)
+    g_x = st.tower_backward(model, residuals, dlogit)[0]
+    g = g_x[:, model.num_combos:].contiguous()
+    varies = int(((g.max(dim=1).values - g.min(dim=1).values) > 0).sum())
+    check(varies > 0, "the tower's cotangent of the FFM outputs is the same "
+                      "across every row: the check would show nothing new")
+    ids = bd["ffm_ids"].to(torch.int32).contiguous()
+    vals = bd["ffm_vals"].contiguous()
+    fields = bd["ffm_fields"].to(torch.int32).contiguous()
+    args = (model.ffm_w, ids, vals, fields, model.num_fields, model.ffm_k,
+            model.ffm_spec)
+    got = ffm.ffm_fused_bwd(g, *args)
+    torch.cuda.synchronize()
+    ok, err, limit = agrees(got, ffm.ffm_fused_bwd_reference(g, *args))
+    check(ok, f"fused backward disagrees with plain at the tower's cotangent: "
+              f"{err} > {limit}")
+    pad = (fields < 0) | (fields >= model.num_fields) | (vals == 0)
+    check(int(torch.count_nonzero(got[pad])) == 0,
+          "fused backward moves padded positions at the tower's cotangent")
+    res = {"B": int(ids.shape[0]), "N": int(ids.shape[1]), "max_abs_err": err,
+           "bound": limit, "rows_that_vary": varies}
+    print(f"kernel ffm_fused_bwd at a tower step's own cotangent g_x[:, C:] "
+          f"(B={res['B']} N={res['N']}, {varies} of {res['B']} rows vary "
+          f"across the row): max_abs_err {err!r} (bound 1e-5·(1+max|plain|)); "
+          f"padded positions 0", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def tower_rate_phase(big: Path, device, n_lines: int, packed: tuple) -> dict:
+    """7d: one default-path run of the tower model over the ``n_lines``
+    lines of ``big`` (a main path), and a profiler window of 64 packed tower
+    steps over 7b's superbatches (``packed``) on a fresh tower model."""
+    import torch
+
+    from fwumious_wabbit_tpu_torch import synthetic
+    from fwumious_wabbit_tpu_torch.models.model import FwModel
+
+    _, run, _ = million_run(big, "1m_tower", n_lines, base=synthetic.tower_argv())
+    mi, _ = synthetic.tower_training_config(big)
+    model = FwModel(mi)
+    model.load_params(model.init_params(device))
+    prof = profile_window(model, *packed, K=8)
+    del model
+    torch.cuda.empty_cache()
+    return {"run": run, "profile": prof}
+
+
+def cache_phase(data: Path, big: Path, default_preds) -> dict:
+    """7e: the record cache over the 1M file: a recording run (-c
+    --fwt_pack_cache off) and a reading run, each a main path; their
+    predictions bit-identical and within one unit of the -p file's sixth
+    decimal of 7b's 1M run. Then --build_cache_without_training on the
+    10k file against the cache a recording run writes for it."""
+    from fwumious_wabbit_tpu_torch import synthetic
+    from fwumious_wabbit_tpu_torch.ingest import cache
+    from fwumious_wabbit_tpu_torch.train.loop import main
+
+    flags = ["-c", "--fwt_pack_cache", "off"]
+    fwcache = Path(cache.cache_path_for(big))
+    fwcache.unlink(missing_ok=True)
+    n_lines = len(default_preds)
+    out = {}
+    for name in ("record", "read"):
+        preds, run, records = million_run(big, f"1m_cache_{name}", n_lines, flags)
+        used = any("using cache file" in r for r in records)
+        check(used == (name == "read"), f"1M -c run {name}: read a record "
+                                        f"cache: {used}")
+        check(fwcache.is_file(), f"1M -c run {name}: no record cache at {fwcache}")
+        err = float(abs(preds - default_preds).max())
+        check(err <= PRED_UNIT, f"1M -c run {name}: predictions differ from "
+                                f"7b's 1M run by {err}")
+        out[name] = {**run, "preds": preds, "pred_err_vs_1m": err,
+                     "bit_identical_to_1m": bool((preds == default_preds).all())}
+    same = bool((out["record"]["preds"] == out["read"]["preds"]).all())
+    check(same, "the -c reading run's predictions differ from the recording run's")
+    header = fwcache.read_bytes()[:16]
+    codec = int.from_bytes(header[8:12], "little")
+    nbytes = fwcache.stat().st_size
+
+    small = Path(cache.cache_path_for(data))
+    small.unlink(missing_ok=True)
+    train_cli(data, "cache_record_10k", flags, save=False)
+    recorded = small.read_bytes()
+    small.unlink()
+    rc = main(synthetic.serving_argv() + ["--data", str(data), "-c",
+                                          "--build_cache_without_training"])
+    check(rc == 0, f"--build_cache_without_training exited {rc}")
+    check(small.read_bytes() == recorded, "--build_cache_without_training wrote "
+                                          "another cache than the recording run")
+    print(f"record cache: codec {cache.CODEC_NAMES.get(codec, codec)} "
+          f"({codec}), {nbytes} bytes for {n_lines:,} lines; recording run "
+          f"{out['record']['ex_s']:.0f} ex/s, reading run "
+          f"{out['read']['ex_s']:.0f} ex/s; their predictions bit-identical: "
+          f"{same}; within {max(out['record']['pred_err_vs_1m'], out['read']['pred_err_vs_1m'])!r} "
+          f"of 7b's 1M run (bit-identical: "
+          f"{out['read']['bit_identical_to_1m']}); --build_cache_without_training "
+          f"on the 10k file: {len(recorded)} bytes, equal to the recording "
+          f"run's", flush=True)
+    for name in ("record", "read"):
+        del out[name]["preds"]
+    fwcache.unlink()
+    return {**out, "codec": codec, "bytes": nbytes}
 
 
 def step_bound(step_upd: dict) -> dict:
@@ -1540,11 +1857,12 @@ def step_bound(step_upd: dict) -> dict:
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, work,
                device_us_per_call, per_batch, per_step, per_packed_step,
-               default_path_launches, default_path) -> dict:
+               default_path_launches, default_path, tower: dict) -> dict:
     """One kernel's entry of the kernels line. ``ms``, ``plain_ms``,
     ``bound_ms`` and ``device_us`` are at the shapes of the serving batch
     (forward) or the --fwt_no_native train step; ``default_path`` holds the
-    same at one default-path train step's own inputs."""
+    same at one default-path train step's own inputs; ``tower`` its
+    launches on the tower's paths (7c, 7d)."""
     work_d = default_path.pop("work")
     return {"name": name, "route": "cuda",
             "source": "fwumious_wabbit_tpu_torch/csrc/" + source,
@@ -1559,7 +1877,8 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, work,
             "launches_on_the_default_training_path": default_path_launches,
             "default_path_step": {**default_path, "bytes": work_d["bytes"],
                                   "bound_ms": work_d["bound_ms"],
-                                  "bound_by": work_d["bound_by"]}}
+                                  "bound_by": work_d["bound_by"]},
+            **tower}
 
 
 def main() -> int:
@@ -1593,6 +1912,7 @@ def main() -> int:
     for src in build.sources():  # the first load builds every source at once
         build.load(src.stem)
     host_engine.join()
+    PHASE_SECONDS["build"] = time.perf_counter() - t0
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {build.build_seconds:.2f} s; host engine "
           f"{'built' if native.load() is not None else 'unavailable: ' + native.load_error})",
@@ -1603,10 +1923,13 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}", flush=True)
 
     data = synthetic.ensure_dataset(ROOT / ".bench_cache" / "chip_smoke", 10_000)
+    dataset = start_dataset(data.parent, 1_000_000)
     mi, vw = synthetic.serving_config(data)
-    kern = kernel_phase(device, mi.ffm_weights_len)
-    upd = update_phase(device)
-    step_upd = step_update_phase(data, device)
+    with phase("3-4 ffm kernels"):
+        kern = kernel_phase(device, mi.ffm_weights_len)
+    with phase("5 sparse update kernel"):
+        upd = update_phase(device)
+        step_upd = step_update_phase(data, device)
 
     paths = (data.with_name("chip_smoke_a.fwt"), data.with_name("chip_smoke_b.fwt"))
     for path, seed in zip(paths, (SEED, SEED + 1)):
@@ -1622,17 +1945,43 @@ def main() -> int:
     del probe
     torch.cuda.empty_cache()
 
-    ffm.LAUNCHES = 0  # the serving path starts here
-    srv = serving_phase(data, paths)
-    launches = ffm.LAUNCHES
+    with phase("6 serving"):
+        ffm.LAUNCHES = 0  # the serving path starts here
+        srv = serving_phase(data, paths)
+        launches = ffm.LAUNCHES
     print(f"ffm_fused kernel launches on the serving path: {launches}", flush=True)
     check(launches > 0, "the serving path never launched the fused FFM forward")
 
-    trn = training_phase(data)  # the Python-ingest training path
-    nat = native_training_phase(data, trn)  # the default training path
-    big = million_phase(data.parent)
-    prof, nkern = packed_step_profile(big["path"], device)
+    with phase("7 training 10k"):
+        trn = training_phase(data)  # the Python-ingest training path
+        nat = native_training_phase(data, trn)  # the default training path
+    with phase("7b training 1M and 200k"):
+        big = million_phase(data.parent, dataset=dataset)
+        prof, nkern, packed = packed_step_profile(big["path"], device)
+    with phase("7c tower training 10k"):
+        twr = tower_phase(data, device)
+    with phase("7d tower rate"):
+        trate = tower_rate_phase(big["path"], device, len(big["preds"]), packed)
+        del packed
+    with phase("7e record cache"):
+        rc_cache = cache_phase(data, big["path"], big["preds"])
+    tower_kernels = (trate["profile"]["device_kernels_per_step"]
+                     - prof["device_kernels_per_step"])
+    print(f"timing: packed tower train steps at full width (K=8, B=1024), per "
+          f"step: {json.dumps(trate['profile'])}; the tower adds "
+          f"{tower_kernels!r} device kernels and "
+          f"{trate['profile']['device_busy_us_per_step'] - prof['device_busy_us_per_step']!r} "
+          f"us of device busy per step to 7b's window", flush=True)
+    print(f"  on {card}", flush=True)
+    print(f"timing: tower training through the CLI at B={TRAIN_BATCH}, 10k "
+          f"lines: --fwt_no_native {twr['python']['ex_s']:.0f} ex/s on the card, "
+          f"{twr['python']['cpu_ex_s']:.0f} with --fwt_platform cpu; the default "
+          f"path {twr['native']['ex_s']:.0f} ex/s on the card, "
+          f"{twr['native']['cpu_ex_s']:.0f} with --fwt_platform cpu; 1M lines on "
+          f"the default path {trate['run']['ex_s']:.0f} ex/s", flush=True)
+    print(f"  on {card}", flush=True)
 
+    t0 = time.perf_counter()
     timing = ffm_timing(paths[0], data, device)
     fwd256, t1024 = timing[256], timing[TRAIN_BATCH]
     for B, res in timing.items():
@@ -1684,8 +2033,12 @@ def main() -> int:
           f"ex/s with --fwt_platform cpu (CLI log, ingest included)", flush=True)
     print(f"  on {card}", flush=True)
     for name, run in big["runs"].items():
-        print(f"timing: train 1M lines, {name}: {run['ex_s']:.0f} ex/s",
-              flush=True)
+        print(f"timing: train {run['lines']:,} lines, {name}: {run['ex_s']:.0f} "
+              f"ex/s", flush=True)
+        print(f"  on {card}", flush=True)
+    for name in ("record", "read"):
+        print(f"timing: train 1,000,000 lines with -c ({name}): "
+              f"{rc_cache[name]['ex_s']:.0f} ex/s", flush=True)
         print(f"  on {card}", flush=True)
     print("timing: packed train steps at full width (K=8, B=1024, the default "
           "path's layout), per step: " + json.dumps(prof), flush=True)
@@ -1706,6 +2059,8 @@ def main() -> int:
             nkern["update"][name + "_plain_ms"], nkern["update"][name + "_device"])
             + f"; bound {json.dumps(nkern['update'][name + '_bound'])}", flush=True)
         print(f"  on {card}", flush=True)
+    PHASE_SECONDS["8 ffm timing"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     layers = layer_breakdown(paths[0], data.read_bytes().splitlines(True), device)
     print("timing: layers per 256-line batch: " + json.dumps(layers), flush=True)
     print(f"  on {card}", flush=True)
@@ -1713,8 +2068,10 @@ def main() -> int:
     print(f"timing: layers per {TRAIN_BATCH}-line train step: "
           + json.dumps(tlayers), flush=True)
     print(f"  on {card}", flush=True)
+    PHASE_SECONDS["9 layer breakdowns"] = time.perf_counter() - t0
     check(not [m for m in sys.modules if m.split(".")[0] in BLOCKED],
           "jax or the JAX package was imported")
+    print("phase seconds: " + json.dumps(PHASE_SECONDS), flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     # launches per step from the main paths' own runs, counts set to 0
@@ -1731,6 +2088,14 @@ def main() -> int:
                "K": {"lr": nu["lr_K"], "ffm": nu["ffm_K"]}}
     nat_fwd = {**nf["fwd"], "B": nf["B"], "N": nf["N"]}
     nat_bwd = {**nf["bwd"], "B": nf["B"], "N": nf["N"]}
+    tower_steps_10k = -(-len(twr["native"]["preds"]) // TRAIN_BATCH)
+
+    def tower(kernel: str) -> dict:
+        return {"launches_on_the_tower_training_path": twr["native"]["launches"][kernel],
+                "launches_per_tower_step": twr["python"]["launches"][kernel]
+                / tower_steps_10k,
+                "launches_per_packed_tower_step":
+                    trate["run"]["launches_per_step"][kernel]}
     print(json.dumps({"kernels": [
         kernel_row("ffm_triangle", "ffm_triangle.cu",
                    "fwumious_wabbit_tpu/ops/pallas/ffm.py:131 (with the slab "
@@ -1741,7 +2106,7 @@ def main() -> int:
                    fwd256["device"]["fwd"]["device_us"],
                    layers["ffm_fused_launches_per_batch"],
                    per_step["ffm_triangle"], packed_step["ffm_triangle"],
-                   nat_launches["ffm_triangle"], nat_fwd),
+                   nat_launches["ffm_triangle"], nat_fwd, tower("ffm_triangle")),
         kernel_row("ffm_triangle_bwd", "ffm_triangle.cu",
                    "jax.vjp of models/model.py:418-443 (no Pallas kernel)",
                    trn["launches"]["ffm_triangle_bwd"],
@@ -1750,7 +2115,9 @@ def main() -> int:
                    t1024["wall_us"]["bwd_plain"] / 1e3, t1024["bwd_bound"],
                    t1024["device"]["bwd"]["device_us"], 0,
                    per_step["ffm_triangle_bwd"], packed_step["ffm_triangle_bwd"],
-                   nat_launches["ffm_triangle_bwd"], nat_bwd),
+                   nat_launches["ffm_triangle_bwd"], nat_bwd,
+                   {**tower("ffm_triangle_bwd"),
+                    "tower_cotangent_max_abs_err": twr["cotangent"]["max_abs_err"]}),
         kernel_row("sparse_adagrad_update", "sparse_update.cu",
                    "fwumious_wabbit_tpu/ops/pallas/sparse_update.py:315",
                    trn["launches"]["sparse_adagrad_update"],
@@ -1759,7 +2126,8 @@ def main() -> int:
                    step_upd["ms"], step_upd["plain_ms"], step_bound(step_upd),
                    upd_dev, 0, per_step["sparse_adagrad_update"],
                    packed_step["sparse_adagrad_update"],
-                   nat_launches["sparse_adagrad_update"], nat_upd)]}))
+                   nat_launches["sparse_adagrad_update"], nat_upd,
+                   tower("sparse_adagrad_update"))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1776,6 +2144,11 @@ if __name__ == "__main__":
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         rc = 1
+    finally:
+        for child in CHILDREN:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
     sys.stdout.flush()
     sys.stderr.flush()
     # the daemon's threads block in accept/recv; leave without joining them

@@ -12,7 +12,8 @@ port's own copy of the JAX package's, so both parse, translate, and write
 files and replies alike.
 
 Ported so far: the serving path (``--daemon`` and ``-t -i`` predict) and
-training from VW text without a dense tower.
+training from VW text, with or without a dense tower (``--nn``), through
+the input record cache (``-c``) as well.
 """
 
 __version__ = "0.1.0"

@@ -11,11 +11,13 @@ model files and parameters carry across unchanged:
 * ``layers[i].w [in, out]``, ``layers[i].b [out]`` (plus ``w_acc``/``b_acc``)
   and ``final`` (the one-neuron readout) when a tower is configured.
 
-Training a model without a tower is ported: the three scope optimizers
+Training is ported, with or without a tower: the three scope optimizers
 (``opt_lr``, ``opt_ffm``, ``opt_nn``) with the batch-mean cap, and
-:meth:`FwModel.init_params`. The train step (train/step.py) updates the
-buffers in place. Training a tower (its init, backward and dense update)
-is not ported yet.
+:meth:`FwModel.init_params`, whose tower weights equal the JAX package's
+bit for bit (the reference's Xoshiro256++ draws, seeded from its tape
+offsets: ops/xoshiro.py, models/ref_offsets.py). The train step
+(train/step.py) updates the buffers in place, the tower's through its
+manual backward and :meth:`ScopedOptimizer.apply_dense`.
 """
 
 from __future__ import annotations
@@ -47,15 +49,30 @@ def predict_prob(logit: torch.Tensor) -> torch.Tensor:
 _NORM_EPS = 1e-2  # reference: src/block_normalize.rs:15
 
 
-def normalize_predict(x: torch.Tensor) -> torch.Tensor:
-    """The prediction path normalizes without mean subtraction, with the
-    reference's quirky variance: mean over (mean² − x)², EPS added before
-    the division (reference: src/block_normalize.rs:77-92,130-163)."""
+def norm_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(mean, σ)`` over the last axis with the reference's quirky
+    variance: mean over (mean² − x)², EPS added before the division
+    (reference: src/block_normalize.rs:77-92)."""
     n = x.shape[-1]
     mean = x.mean(-1, keepdim=True)
     w = mean * mean - x
     var = ((w * w).sum(-1, keepdim=True) + _NORM_EPS) / n
-    return x / torch.sqrt(var)
+    return mean, torch.sqrt(var)
+
+
+def normalize_predict(x: torch.Tensor) -> torch.Tensor:
+    """The prediction path normalizes without mean subtraction
+    (reference: src/block_normalize.rs:130-163)."""
+    return x / norm_stats(x)[1]
+
+
+def normalize_train(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training path's ``((x − mean)/σ, σ)``. Its backward is the
+    reference's g/σ, mean and σ held constant (src/block_normalize.rs:99-105;
+    fwumious_wabbit_tpu/models/model.py:111-128): train/step.py applies
+    that rule in the tower's manual backward."""
+    mean, sigma = norm_stats(x)
+    return (x - mean) / sigma, sigma
 
 
 @dataclass(frozen=True)
@@ -185,14 +202,12 @@ class FwModel(nn.Module):
         return self
 
     def init_params(self, device=None) -> dict:
-        """Fresh weights (fwumious_wabbit_tpu/models/model.py:276-336, no
-        tower): LR weights 0, accumulators at ``initial_acc()``, FFM weights
-        from merand48 (ops/init.py), all on ``device``."""
+        """Fresh weights (fwumious_wabbit_tpu/models/model.py:276-375): LR
+        weights 0, accumulators at ``initial_acc()``, FFM weights from
+        merand48 (ops/init.py), the tower's layers from :meth:`_init_layer`
+        and its one-neuron readout at ones, all on ``device``."""
         from ..ops import init as ffm_init
 
-        if self.has_nn:
-            raise NotImplementedError(
-                "not yet ported: initializing a dense tower (--nn)")
         mi = self.mi
         rows = (self.lr_spec.num_rows, tables.LANE)
         params = {"lr_w": torch.zeros(rows, dtype=torch.float32, device=device)}
@@ -214,7 +229,65 @@ class FwModel(nn.Module):
             if self.opt_ffm.has_state:
                 params["ffm_acc"] = torch.full(rows, self.opt_ffm.initial_acc(),
                                                dtype=torch.float32, device=device)
+        if self.has_nn:
+            from . import ref_offsets
+
+            offs = ref_offsets.reference_nn_offsets(
+                self.num_combos, self.num_fields if self.has_ffm else 0,
+                self.topology,
+                [(s.width, s.layernorm, s.activation) for s in self.nn_layers])
+            layers, d = [], self.joined_width
+            for spec, off in zip(self.nn_layers, offs[:-1]):
+                layers.append(self._init_layer(off, d, spec.width, spec.init,
+                                               device))
+                d = spec.width
+            params["nn"] = layers
+            final_in = d + (self.joined_width if self.topology != "two" else 0)
+            params["final"] = self._init_layer(offs[-1], final_in, 1, "one",
+                                               device)
         return params
+
+    def _init_layer(self, off, fan_in: int, fan_out: int, init: str,
+                    device) -> dict:
+        """One layer's ``w [fan_in, fan_out]``, zero ``b`` and, unless SGD,
+        accumulators at ``opt_nn.initial_acc()``: the reference's init
+        (src/block_neural.rs:382-418). Xavier draws uniform in
+        ±√6/√(fan_in·fan_out), Hu normal with σ = √(2/fan_in) through the
+        ziggurat, from a Xoshiro256++ seeded by the layer's tape offsets;
+        the draws are neuron-major, as the reference stores them."""
+        import numpy as np
+
+        from ..ops import xoshiro
+        from . import ref_offsets
+
+        in_off, out_off, num_inputs, num_neurons = off
+        if (num_inputs, num_neurons) != (fan_in, fan_out):
+            raise ValueError(f"ref_offsets layer shape {off} drifted from the "
+                             f"model's ({fan_in}, {fan_out})")
+        if init in ("xavier", "hu"):
+            rng = xoshiro.Xoshiro256PlusPlus(
+                ref_offsets.layer_seed(in_off, out_off, fan_in, fan_out))
+            n = fan_in * fan_out
+            if init == "xavier":
+                bound = float(np.sqrt(6.0)) / float(np.sqrt(n))
+                seq = [rng.uniform(-bound, bound) for _ in range(n)]
+            else:
+                std = float(np.sqrt(2.0 / fan_in))
+                seq = [xoshiro.normal(rng, 0.0, std) for _ in range(n)]
+            w = np.array(seq, np.float32).reshape(fan_out, fan_in).T
+        elif init == "one":
+            w = np.ones((fan_in, fan_out), np.float32)
+        else:  # zero
+            w = np.zeros((fan_in, fan_out), np.float32)
+        layer = {"w": torch.from_numpy(np.ascontiguousarray(w)).to(device),
+                 "b": torch.zeros(fan_out, dtype=torch.float32, device=device)}
+        if self.opt_nn.has_state:
+            a0 = self.opt_nn.initial_acc()
+            layer["w_acc"] = torch.full((fan_in, fan_out), a0,
+                                        dtype=torch.float32, device=device)
+            layer["b_acc"] = torch.full((fan_out,), a0, dtype=torch.float32,
+                                        device=device)
+        return layer
 
     def params(self) -> dict:
         """The weights as a params dict (the inverse of :meth:`load_params`)."""

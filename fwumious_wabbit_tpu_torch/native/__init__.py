@@ -8,9 +8,10 @@ src/lib.rs:151-252), :func:`format_preds`, and the training path's C++
 ingest: :class:`NativeIngest` (parse + translate + batch fill, host counts,
 the fused wire emit), :class:`VocabEncoder` and the bit-packers
 (:func:`bitpack_ids`, :func:`bitpack_mixed`, :func:`counts_table`), which
-train/packed.py and train/producer.py drive. ``persistence/quantization.py``
-binds its F16C helpers on the library :func:`load` returns. The record-cache
-reader (``translate_records``) waits for the ``-c`` slice.
+train/packed.py and train/producer.py drive, with the record cache's
+bindings (``translate_records``, ``records_consumed``, ``records``).
+``persistence/quantization.py`` binds its F16C helpers on the library
+:func:`load` returns.
 
 The library is built by ``g++`` on first use into
 ``fwumious_wabbit_tpu_torch/build/`` (listed in ``.gitignore``), with the
@@ -132,6 +133,13 @@ def _configure(lib):
     lib.fwn_last_error.argtypes = [ctypes.c_void_p]
     lib.fwn_translate_block.restype = i64
     lib.fwn_translate_block.argtypes = [ctypes.c_void_p, ctypes.c_char_p, i64]
+    lib.fwn_translate_records.restype = i64
+    lib.fwn_translate_records.argtypes = [ctypes.c_void_p, P(u32), i64]
+    lib.fwn_records_consumed.restype = i64
+    lib.fwn_records_consumed.argtypes = [ctypes.c_void_p]
+    lib.fwn_records_len.restype = i64
+    lib.fwn_records_len.argtypes = [ctypes.c_void_p]
+    lib.fwn_records_copy.argtypes = [ctypes.c_void_p, P(u32)]
     lib.fwn_lr_max.restype = ctypes.c_int
     lib.fwn_lr_max.argtypes = [ctypes.c_void_p]
     lib.fwn_ffm_max.restype = ctypes.c_int
@@ -554,6 +562,30 @@ class NativeIngest:
                 raise HogwildLoadCommand("")
             raise ValueError(msg)
         return int(n)
+
+    def translate_records(self, records: np.ndarray) -> int:
+        """Translate packed u32 records (the cache read path)."""
+        records = np.ascontiguousarray(records, np.uint32)
+        n = self._lib.fwn_translate_records(
+            self._ctx, records.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            records.size)
+        if n < 0:
+            raise ValueError(self._lib.fwn_last_error(self._ctx).decode())
+        return int(n)
+
+    def records_consumed(self) -> int:
+        """Words consumed by the last translate_records (a partial trailing
+        record is left for the caller to carry over)."""
+        return int(self._lib.fwn_records_consumed(self._ctx))
+
+    def records(self) -> np.ndarray:
+        """Packed u32 records of the last translated block (cache writing)."""
+        n = self._lib.fwn_records_len(self._ctx)
+        out = np.empty(int(n), np.uint32)
+        if n:
+            self._lib.fwn_records_copy(
+                self._ctx, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+        return out
 
     def stop_offset(self) -> int:
         """Byte offset of the empty line (= end-of-stream, reference

@@ -18,6 +18,7 @@ The JAX module imports jax at its top, so :func:`build_lut` and
 :meth:`ScopedOptimizer.apply_rows` updates its tables in place: on a CUDA
 tensor through the hand-written kernel (ops/sparse_update.py), on a CPU
 tensor through the plain ``index_add_`` version below.
+:meth:`ScopedOptimizer.apply_dense` updates a tower tensor in place.
 
 Denormal accumulators: XLA on a TPU (and on the CPU) flushes them to zero;
 PyTorch on the CPU and the CUDA kernel (built without fast math) keep them,
@@ -225,6 +226,25 @@ class ScopedOptimizer:
         c = decode_counts(counts) if counts.dtype == torch.uint8 else counts
         c = torch.clamp(c.to(torch.float32), min=1.0)
         return torch.clamp(c.new_tensor(self.batch_cap) / c, max=1.0)
+
+    def apply_dense(self, w: torch.Tensor, acc: torch.Tensor | None,
+                    gsum: torch.Tensor, gsq: torch.Tensor):
+        """Dense update of a tower tensor, **in place**: ``w``, ``acc``,
+        ``gsum`` (Σ_examples g) and ``gsq`` (Σ_examples g²) of one shape.
+        ``acc += gsq`` then ``w −= rate(acc_new)·gsum``; ``w −= lr·gsum`` for
+        SGD, whose ``acc`` is None (fwumious_wabbit_tpu/ops/adagrad.py:191-202).
+        Returns ``(w, acc)``."""
+        if self.kind == OPT_SGD:
+            w.sub_(gsum * self.learning_rate)
+            return w, acc
+        acc.add_(gsq)
+        if self.kind == OPT_ADAGRAD_LUT:
+            upd = gsum * lut_rate_compute(acc, self.learning_rate, self.power_t,
+                                          self.initial_acc_gradient)
+        else:
+            upd = flex_update(gsum, acc, self.learning_rate, self.power_t)
+        w.sub_(upd)
+        return w, acc
 
     def apply_rows(self, w: torch.Tensor, acc: torch.Tensor | None,
                    rid: torch.Tensor, grows: torch.Tensor,

@@ -9,6 +9,9 @@ namespaces A (animal) and B (food) whose match decides the label, and ten
 random namespaces C..L. The configuration is bench.py's "FFM k=8" one:
 ``_base_argv`` plus ``--ffm_k 8 --ffm_bit_precision 25 --ffm_field A
 --ffm_field B`` — 2^25 LR weights, 2^25+16 FFM weights, fields A and B.
+The tower configuration puts BASELINE.json's config 3 tower ("Deep FFM":
+one ReLU layer of 16, topology one; the flags of
+tests/test_baseline_flows.py) on the same tables.
 """
 
 from __future__ import annotations
@@ -105,4 +108,24 @@ def training_config(data: Path) -> tuple[ModelInstance, VwNamespaceMap]:
     power_t 0 in both scopes)."""
     vw = VwNamespaceMap.from_dataset_dir(str(data))
     mi = ModelInstance.from_cmdline(build_parser().parse_args(serving_argv()), vw)
+    return mi, vw
+
+
+# BASELINE config 3's dense tower (tests/test_baseline_flows.py:61-63)
+TOWER_FLAGS = ["--nn_layers", "1", "--nn", "0:width:16", "--nn", "0:activation:relu",
+               "--nn_topology", "one", "--nn_learning_rate", "0.02",
+               "--nn_power_t", "0.5"]
+
+
+def tower_argv() -> list[str]:
+    """The LR+FFM k=8 flags with the dense tower."""
+    return serving_argv() + TOWER_FLAGS
+
+
+def tower_training_config(data: Path) -> tuple[ModelInstance, VwNamespaceMap]:
+    """``(mi, vw)`` of :func:`training_config`'s tables with the tower:
+    AdagradLUT in every scope, power_t 0 in the LR and FFM scopes (the
+    batch-mean cap) and 0.5 in the tower's."""
+    vw = VwNamespaceMap.from_dataset_dir(str(data))
+    mi = ModelInstance.from_cmdline(build_parser().parse_args(tower_argv()), vw)
     return mi, vw

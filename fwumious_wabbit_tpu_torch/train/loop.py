@@ -9,7 +9,17 @@ fwumious_wabbit_tpu/train/loop.py, for the modes ported so far:
   ``--predictions_after``, and the final model to ``-f``.
   ``--holdout_after``, ``--prediction_model_delay``, ``--fwt_exact`` (batch
   1) and ``--fwt_batch_size`` keep their meaning;
-* ``-t`` (with or without ``-i``): the same loop without updates.
+* ``-t`` (with or without ``-i``): the same loop without updates;
+* ``--build_cache_without_training``: the record cache only.
+
+Training takes a dense tower (``--nn``, its manual backward and dense
+update on the device, train/step.py) as the JAX CLI does, and ``-c`` reads
+and writes the record cache (ingest/cache.py) on both ingest paths: the
+Python parser reads records through :func:`record_stream`, the C++ ingest
+through producer.native_batch_stream; with ``-c``, ``--fwt_pack_cache
+auto`` records and replays the pack cache as well, whose replay then comes
+first. ``--fwt_profile DIR`` writes a torch.profiler trace of a window of
+the run's steps into DIR (:class:`_ProfileWindow`).
 
 Training and ``-t`` (on the device engine) read their input through the JAX
 CLI's default path, as its ``_use_native`` chooses it for both: the C++
@@ -28,15 +38,18 @@ which quietly trains on the Python path when its C++ library does not load,
 the default path here fails with the compiler's message and exits
 non-zero: only ``--fwt_no_native`` chooses the Python ingest.
 
-Any other mode exits non-zero with "not yet ported": training a dense
-tower (``--nn``), the record cache (``-c``), convert, sharding. The flag
-vocabulary is the JAX package's (the port's copy in config/cmdline.py).
+Any other mode exits non-zero with "not yet ported": convert, sharding.
+The flag vocabulary is the JAX package's (the port's copy in
+config/cmdline.py).
 Every mode runs on the CUDA card; the CPU only with ``--fwt_platform cpu``.
 ``--fwt_serve_engine`` keeps its meaning, except that ``auto`` means the
 device engine here: ``native`` (the port's copy of the embedded C++ engine,
 native/) must be asked for, and fails rather than falls back when it
-cannot be built. ``--fwt_pallas_update`` is accepted and ignored (on a CUDA
-tensor the sparse update kernel always runs).
+cannot be built; as in the JAX CLI, it predicts only what
+``native_predict_eligible`` admits (no ``-f``, ``-c``, delay, sharding or
+``--fwt_no_native``), and the device engine takes the rest.
+``--fwt_pallas_update`` is accepted and ignored (on a CUDA tensor the
+sparse update kernel always runs).
 
 ``FWT_PIPELINE_DEPTH`` bounds the prediction fetches in flight to the
 writer (default 3); ``FWT_COUNTERS_OUT=<path>`` writes the run's examples,
@@ -68,7 +81,7 @@ from ..ingest import (
 )
 from ..utils.device import NoDeviceError, resolve_device
 from ..utils.logging import get_logger
-from .predict import PredictionWriter
+from .predict import PredictionWriter, native_predict_eligible
 
 log = get_logger(__name__)
 
@@ -91,20 +104,121 @@ def _daemonize() -> None:
 
 
 def _not_ported(args) -> str | None:
-    """Why ``args`` asks for a mode this package does not run yet, or None.
-    (A dense tower is refused once the model is known, in :func:`main`.)"""
+    """Why ``args`` asks for a mode this package does not run yet, or None."""
     if args.convert_inference_regressor:
         return "--convert_inference_regressor"
-    if args.build_cache_without_training:
-        return "--build_cache_without_training"
     if int(args.fwt_table_axis or 1) > 1 or (args.fwt_data_axis or 1) > 1 \
             or args.fwt_hosts:
         return "multi-device sharding (--fwt_table_axis/--fwt_data_axis/--fwt_hosts)"
-    if args.daemon:
-        return None
-    if args.cache:
-        return "the record cache (-c)"
     return None
+
+
+def record_stream(args, vw):
+    """Yield parsed u32 records from the record cache (if valid) or from
+    the text, writing the cache when ``-c`` (the reference's RecordCache
+    drive, src/cache.rs:53-131, src/main.rs:213-228; a copy of
+    fwumious_wabbit_tpu/train/loop.py:49-89)."""
+    from ..ingest import cache as fwcache
+
+    use_cache = bool(args.cache)
+    cpath = fwcache.cache_path_for(args.data)
+    if use_cache and os.path.exists(cpath):
+        try:
+            reader = fwcache.RecordCacheReader(cpath, vw)
+        except (fwcache.StaleCacheError, ValueError) as e:
+            log.warning("cache rejected (%s); reparsing", e)
+        else:
+            log.info("using cache file %s (%s)", cpath,
+                     fwcache.CODEC_NAMES.get(reader.codec, reader.codec))
+            try:
+                yield from reader
+            finally:
+                reader.close()
+            return
+
+    writer = fwcache.RecordCacheWriter(cpath, vw) if use_cache else None
+    parser = VowpalParser(vw)
+    stream = create_buffered_input(args.data)
+    try:
+        while True:
+            # in-band commands in a training file abort the run, as in the
+            # reference (src/main.rs:218-221)
+            rec = parser.next_vowpal(stream)
+            if rec.size == 0:
+                break
+            if writer is not None:
+                writer.push_record(rec)
+            yield rec
+    except BaseException:
+        # never publish a truncated cache (the reference renames the
+        # .writing temp only on clean completion, src/cache.rs:147-153)
+        if writer is not None:
+            writer.abort()
+        raise
+    else:
+        if writer is not None:
+            writer.write_finish()
+    finally:
+        stream.close()
+
+
+def build_cache_without_training(args, vw) -> int:
+    """--build_cache_without_training (reference: src/main.rs:50-94): the
+    record cache of ``--data``, written by :func:`record_stream`."""
+    n = sum(1 for _ in record_stream(args, vw))
+    log.info("cache built: %d records", n)
+    return n
+
+
+class _ProfileWindow:
+    """``--fwt_profile DIR``: a torch.profiler trace (CPU, and the card's
+    kernels on CUDA) of a window of the run's dispatches — a single batch's
+    step, or a packed superbatch's K steps — written to
+    ``DIR/fwt_trace_<pid>.json`` in the Chrome trace format. The first
+    dispatch (first use of each kernel and allocation) is left out, the
+    next :attr:`STEPS` are traced; a run that ends inside the window writes
+    what it traced (the JAX CLI traces its whole run with jax.profiler,
+    fwumious_wabbit_tpu/train/loop.py:860-877)."""
+
+    SKIP = 1
+    STEPS = 8
+
+    def __init__(self, directory: str, device: torch.device):
+        self.directory = directory
+        self.device = device
+        self.dispatches = 0
+        self.prof = None
+        self.path = None
+
+    def step(self) -> None:
+        """Called after each dispatch."""
+        self.dispatches += 1
+        if self.dispatches == self.SKIP:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+        elif self.dispatches == self.SKIP + self.STEPS:
+            self.close()
+
+    def close(self) -> None:
+        """Stop and write the trace, once; a run of at most SKIP dispatches
+        has traced nothing and writes nothing."""
+        if self.path is not None:
+            return
+        if self.prof is None:
+            log.warning("--fwt_profile: the run ended before its profile "
+                        "window (after %d dispatch)", self.SKIP)
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.directory, exist_ok=True)
+        self.path = os.path.join(self.directory, f"fwt_trace_{os.getpid()}.json")
+        self.prof.export_chrome_trace(self.path)
+        log.info("profiler trace of %d dispatches written to %s",
+                 min(self.dispatches - self.SKIP, self.STEPS), self.path)
 
 
 def np_counts(ids: np.ndarray, vals: np.ndarray, shift: int) -> np.ndarray:
@@ -159,6 +273,8 @@ class _Run:
     def __init__(self, args, model):
         from .step import make_predict_step, make_train_step
 
+        self.profile = (_ProfileWindow(args.fwt_profile, model.lr_w.device)
+                        if args.fwt_profile else None)
         self.testonly = bool(args.testonly)
         self.batch_size = (1 if args.fwt_exact
                            else max(1, int(args.fwt_batch_size or 1024)))
@@ -270,8 +386,13 @@ class _Run:
                 self.delayed_examples -= old_n
                 if self.train_step is not None:
                     self.train_step(old_bd)
+        self.profile_step()
         if self.writer.active:
             self.fetch(preds, [(first_num, n)])
+
+    def profile_step(self) -> None:
+        if self.profile is not None:
+            self.profile.step()
 
     def finish(self) -> dict:
         """Train what the delay still holds, drain the writer, log the rate
@@ -292,6 +413,8 @@ class _Run:
                                  process_cpu_s=time.process_time() - self.t0_cpu)}
 
     def close(self) -> None:
+        if self.profile is not None:
+            self.profile.close()
         if self.wt.is_alive():
             self.wq.put(None)
             self.wt.join()
@@ -316,11 +439,11 @@ def run_train_loop(args, mi, vw, model) -> dict:
 
 
 def _python_ingest(args, mi, vw, run: _Run) -> None:
-    """``--fwt_no_native``: the Python parser, translator and batcher, with
-    numpy host counts, one batch at a time (the JAX loop's fallback path)."""
+    """``--fwt_no_native``: the Python parser (or the record cache, with
+    ``-c``), translator and batcher, with numpy host counts, one batch at a
+    time (the JAX loop's fallback path)."""
     from .step import train_batch_dict
 
-    parser = VowpalParser(vw)
     translator = FeatureTranslator(mi)
     batcher = Batcher(run.batch_size)
     count_keys = run.count_keys
@@ -341,21 +464,14 @@ def _python_ingest(args, mi, vw, run: _Run) -> None:
         run.process(bd, batch.num_examples)
         pending.clear()
 
-    stream = create_buffered_input(args.data)
-    try:
-        seen = 0
-        while True:
-            rec = parser.next_vowpal(stream)
-            if rec.size == 0:  # end of file or an empty line
-                break
-            seen += 1
-            pending.append(translator.translate(rec))
-            if len(pending) >= run.batch_size or (run.cut_at is not None
-                                                  and seen == run.cut_at):
-                flush()
-        flush()
-    finally:
-        stream.close()
+    seen = 0
+    for rec in record_stream(args, vw):
+        seen += 1
+        pending.append(translator.translate(rec))
+        if len(pending) >= run.batch_size or (run.cut_at is not None
+                                              and seen == run.cut_at):
+            flush()
+    flush()
 
 
 def _native_ingest(args, mi, vw, model, run: _Run) -> None:
@@ -381,8 +497,8 @@ def _native_ingest(args, mi, vw, model, run: _Run) -> None:
                    else None)
 
     # the pack cache: record the producer's queue stream on the first pass,
-    # replay it on re-runs over the same input and config. auto engages
-    # with -c, which is not ported yet, so here only "on" engages it
+    # replay it on re-runs over the same input and config; auto engages it
+    # with -c (the sibling record cache's own trigger)
     pc_mode = args.fwt_pack_cache or "auto"
     pack_iter = pack_writer = None
     if can_pack and pc_mode != "off" and os.path.isfile(args.data) and (
@@ -456,6 +572,7 @@ def _native_ingest(args, mi, vw, model, run: _Run) -> None:
                 packed_mod.make_packed_train_step_ring(model, lay, K, M)(
                     buf, ring, len(ring_metas), *vargs)
                 ctr["dispatch_s"] += time.perf_counter() - t1
+                run.profile_step()
                 ring_metas.append((first_num, gn))
                 if len(ring_metas) == M:
                     flush_ring()
@@ -464,6 +581,7 @@ def _native_ingest(args, mi, vw, model, run: _Run) -> None:
                 preds = packed_mod.make_packed_train_step(model, lay, kk)(
                     buf, *vargs)
                 ctr["dispatch_s"] += time.perf_counter() - t1
+                run.profile_step()
                 if run.writer.active:
                     run.fetch(preds, [(first_num, gn)])
         else:
@@ -505,8 +623,9 @@ def main(argv=None) -> int:
             return 1
         if not args.foreground:
             _daemonize()
-    elif engine == "native" and args.testonly and args.initial_regressor:
-        # -t -i on the embedded C++ engine, asked for explicitly
+    elif engine == "native" and native_predict_eligible(args):
+        # -t -i on the embedded C++ engine, asked for explicitly; -f, -c,
+        # a delay or --fwt_no_native take the device path, as in JAX
         from .predict import run_native_predict
 
         try:
@@ -524,6 +643,17 @@ def main(argv=None) -> int:
         mi, vw = model_file.read_header(args.initial_regressor)
         Serving(args, mi, vw, None, model_path=args.initial_regressor).serve()
         return 0
+    if args.build_cache_without_training:
+        # parse only: no model and no device
+        if args.initial_regressor:
+            _mi, vw = model_file.read_header(args.initial_regressor)
+        elif not args.data:
+            log.error("--data expected")
+            return 1
+        else:
+            vw = VwNamespaceMap.from_dataset_dir(args.data)
+        build_cache_without_training(args, vw)
+        return 0
 
     try:
         device = resolve_device(args.fwt_platform)
@@ -540,9 +670,6 @@ def main(argv=None) -> int:
         mi, vw, model = model_file.load_model(
             args.initial_regressor, immutable=args.testonly, args=args,
             device=device)
-        if model.has_nn and not args.testonly:
-            log.error("not yet ported: training a dense tower (--nn)")
-            return 2
     else:
         if not args.data:
             log.error("--data expected")
@@ -551,10 +678,6 @@ def main(argv=None) -> int:
         mi = ModelInstance.from_cmdline(args, vw)
         model = FwModel(mi, batch_mean_mode=args.fwt_batch_mean or "auto",
                         batch_cap=float(args.fwt_batch_cap or 8.0))
-        if model.has_nn:
-            log.error("not yet ported: initializing and training a dense "
-                      "tower (--nn)")
-            return 2
         model.load_params(model.init_params(device))
     if not args.fwt_no_native:
         from .. import native

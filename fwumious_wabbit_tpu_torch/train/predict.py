@@ -5,8 +5,9 @@ The port's own copy of part of fwumious_wabbit_tpu/train/predict.py:
 src/main.rs:260-269); ``run_native_predict`` is the ``-t -i model`` CLI mode
 routed through the embedded C++ engine (native/fw_ffi.cpp, the port's copy),
 a host-side per-line forward loop as in the reference (src/main.rs:213-270
-with update=false). ``native_predict_eligible`` is left out: the port runs
-the embedded engine only when ``--fwt_serve_engine native`` asks for it.
+with update=false); ``native_predict_eligible`` says which ``-t`` runs it
+may take. The port runs the embedded engine only when ``--fwt_serve_engine
+native`` asks for it, and then only for the runs that function admits.
 """
 
 from __future__ import annotations
@@ -61,6 +62,28 @@ class PredictionWriter:
     def close(self) -> None:
         if self._fh:
             self._fh.close()
+
+
+def native_predict_eligible(args) -> bool:
+    """True when a ``-t`` run may take the embedded C++ engine. It needs a
+    model file (``-i``), since the engine loads the weights itself, and
+    data. The device path takes cache-driven runs (``-c`` keeps the
+    reference's cache read and write), runs that write a model
+    (``-f``), multi-device meshes, ``--fwt_serve_engine device``,
+    ``--fwt_no_native`` and ``--prediction_model_delay``
+    (fwumious_wabbit_tpu/train/predict.py:70-87)."""
+    return bool(
+        getattr(args, "testonly", False)
+        and getattr(args, "initial_regressor", None)
+        and getattr(args, "data", None)
+        and not getattr(args, "cache", False)
+        and not getattr(args, "final_regressor", None)
+        and not getattr(args, "fwt_no_native", False)
+        and (getattr(args, "fwt_serve_engine", "auto") or "auto") != "device"
+        and int(getattr(args, "fwt_table_axis", 1) or 1) <= 1
+        and (getattr(args, "fwt_data_axis", None) in (None, 1))
+        and not getattr(args, "prediction_model_delay", None)
+    )
 
 
 def run_native_predict(args, pred=None) -> dict:

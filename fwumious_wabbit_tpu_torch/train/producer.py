@@ -40,23 +40,23 @@ def native_batch_stream(args, mi, vw, batch_size: int,
                         count_keys: dict | None = None,
                         fused_hook=None):
     """Yield (batch_dict, n_examples) using the C++ ingest engine
-    (the port's native/): text is translated in parallel and scattered
-    straight into padded arrays. Behaviourally identical to the Python path
-    (cross-checked in tests); padded widths are exact with a high-water
-    mark, so a stable schema keeps one shape.
+    (the port's native/): text or record-cache records (``-c``) are
+    translated in parallel and scattered straight into padded arrays.
+    Behaviourally identical to the Python path (cross-checked in tests);
+    padded widths are exact with a high-water mark, so a stable schema
+    keeps one shape.
 
     ``cut_at``: an absolute example number a block must not cross (the
     train/holdout boundary). Line blocks are cut conservatively by line
     count — in-band command lines only shrink a block, never push an
-    example past the boundary. The record cache (``-c``) is not ported
-    yet: asking for it raises."""
+    example past the boundary."""
     from .. import native as fw_native
-
-    if getattr(args, "cache", False):
-        raise NotImplementedError("not yet ported: the record cache (-c)")
+    from ..ingest import cache as fwcache
 
     ni = fw_native.NativeIngest(mi, vw)
     input_filename = args.data
+    use_cache = bool(getattr(args, "cache", False))
+    cpath = fwcache.cache_path_for(input_filename)
     # high-water exact batch widths: padded width only ever grows (one new
     # layout per growth, usually none — schemas have a fixed entry
     # count). Power-of-two bucketing cost 18% pure padding on the
@@ -157,7 +157,23 @@ def native_batch_stream(args, mi, vw, batch_size: int,
             ni.carry_tail(s)
         carried[0] = s < n
 
-    ni.set_build_records(False)
+    if use_cache and os.path.exists(cpath):
+        try:
+            reader = fwcache.RecordCacheReader(cpath, vw)
+        except (fwcache.StaleCacheError, ValueError) as e:
+            log.warning("cache rejected (%s); reparsing", e)
+        else:
+            log.info("using cache file %s (%s)", cpath,
+                     fwcache.CODEC_NAMES.get(reader.codec, reader.codec))
+            try:
+                yield from _cached_blocks(ni, reader, drain, carried)
+            finally:
+                reader.close()
+            return
+
+    writer = fwcache.RecordCacheWriter(cpath, vw) if use_cache else None
+    if writer is None:
+        ni.set_build_records(False)
     stream = create_buffered_input(input_filename)
     # chunk size does not affect batching (sub-batch remainders carry
     # across blocks), so it is sized for RSS: the chunk buffer + its
@@ -193,6 +209,8 @@ def native_batch_stream(args, mi, vw, batch_size: int,
                 tail = b""
             if not n:
                 continue
+            if writer is not None:
+                writer.push_record(ni.records())
             yield from drain(n, at_eof)
         if carried[0]:
             # EOF arrived with no trailing bytes while examples were still
@@ -200,8 +218,48 @@ def native_batch_stream(args, mi, vw, batch_size: int,
             n = ni.translate_block(b"")
             if n:
                 yield from drain(n, at_eof=True)
+    except BaseException:
+        if writer is not None:
+            writer.abort()  # never publish a truncated cache
+        raise
+    else:
+        if writer is not None:
+            writer.write_finish()
     finally:
         stream.close()
+
+
+def _cached_blocks(ni, reader, drain, carried):
+    """The batches of a record cache: its decompressed bytes in chunks,
+    each chunk's whole records translated (a record split across chunks
+    carries over), a cache that ends inside a record rejected as
+    truncated (fwumious_wabbit_tpu/train/producer.py:165-196)."""
+    tail = b""
+    while True:
+        chunk = reader.read_chunk()
+        if not chunk and not tail:
+            break
+        buf = tail + chunk
+        words = len(buf) // 4
+        if words == 0:
+            if not chunk:
+                raise ValueError("truncated cache file")
+            tail = buf
+            continue
+        n = ni.translate_records(np.frombuffer(buf[: words * 4], np.uint32))
+        consumed = ni.records_consumed()
+        if not chunk and consumed < words:
+            raise ValueError("truncated cache file")
+        tail = buf[consumed * 4:]
+        if n == 0:
+            continue
+        yield from drain(n, at_eof=not chunk)
+    if carried[0]:
+        # the reader hit EOF with examples still parked in the carry
+        # shard: surface them as a final (empty-input) block
+        n = ni.translate_records(np.empty(0, np.uint32))
+        if n:
+            yield from drain(n, at_eof=True)
 
 
 class VocabFlipPolicy:

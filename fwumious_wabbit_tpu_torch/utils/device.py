@@ -20,6 +20,7 @@ def set_full_precision() -> None:
     """Full float32 matrix products and convolutions (TF32 off) — the
     counterpart of ``precision="highest"`` in the JAX model
     (fwumious_wabbit_tpu/models/model.py:195-216)."""
+    torch.set_float32_matmul_precision("highest")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -13,7 +13,15 @@ from fwumious_wabbit_tpu.persistence import model_file as jmf
 from fwumious_wabbit_tpu.train.loop import main as jax_main
 from fwumious_wabbit_tpu_torch.train.loop import main
 
-from torch_parity import FFM_ARGV, jax_params, make_mi, make_vw, vw_lines
+from torch_parity import (  # noqa: F401 (jax_native_loaded: an autouse fixture)
+    FFM_ARGV,
+    jax_native_loaded,
+    jax_params,
+    make_mi,
+    make_vw,
+    vw_lines,
+)
+
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -74,11 +82,44 @@ def test_second_card_is_refused(tmp_path):
 
 
 def test_training_is_not_yet_ported(tmp_path):
-    """Training a dense tower and the record cache are not ported yet
-    (plain training is: tests/test_torch_train_cli.py)."""
-    _, data = model_and_data(tmp_path)
-    for extra in (["--nn_layers", "1", "--nn", "0:width:4"], ["-c"]):
+    """Convert and sharded training are not ported yet: the CLI says so,
+    with a tower and with the record cache too (both of which train
+    unsharded: tests/test_torch_tower_cli.py, test_torch_cache.py)."""
+    path, data = model_and_data(tmp_path)
+    for extra in (["--nn_layers", "1", "--nn", "0:width:4", "--fwt_table_axis", "2"],
+                  ["-c", "--fwt_hosts", "2"],
+                  ["-i", str(path), "--convert_inference_regressor",
+                   str(tmp_path / "inf.fwt")]):
         r = run_cli(["--data", str(data), "--keep", "A", "--fwt_platform",
                      "cpu", *extra], tmp_path)
         assert r.returncode != 0, extra
         assert "not yet ported" in r.stderr, extra
+    assert not (tmp_path / "inf.fwt").exists()
+
+
+def test_native_engine_testonly_writes_the_final_regressor(tmp_path, caplog):
+    """-t -i -f --save_resume --fwt_serve_engine native: -f makes the run
+    ineligible for the embedded engine (native_predict_eligible), so the
+    device path writes the model file, byte-equal to the one the JAX CLI
+    writes; without -f the embedded engine predicts."""
+    import logging
+
+    path, data = model_and_data(tmp_path)
+    common = ["-t", "-i", str(path), "--data", str(data), "--save_resume",
+              "--fwt_serve_engine", "native"]
+    assert jax_main(common + ["-f", str(tmp_path / "jax.fwt"),
+                              "-p", str(tmp_path / "jax.out")]) == 0
+    with caplog.at_level(logging.INFO):
+        assert main(common + ["-f", str(tmp_path / "port.fwt"),
+                              "-p", str(tmp_path / "port.out"),
+                              "--fwt_platform", "cpu"]) == 0
+    assert not any("native predict engine" in r.message for r in caplog.records)
+    assert (tmp_path / "port.fwt").read_bytes() == (tmp_path / "jax.fwt").read_bytes()
+    np.testing.assert_allclose(read_preds(tmp_path / "port.out"),
+                               read_preds(tmp_path / "jax.out"), rtol=0, atol=2e-6)
+    caplog.clear()
+    with caplog.at_level(logging.INFO):
+        assert main(common + ["-p", str(tmp_path / "native.out")]) == 0
+    assert any("native predict engine" in r.message for r in caplog.records)
+    np.testing.assert_allclose(read_preds(tmp_path / "native.out"),
+                               read_preds(tmp_path / "jax.out"), rtol=0, atol=2e-6)

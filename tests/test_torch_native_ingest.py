@@ -16,7 +16,12 @@ from fwumious_wabbit_tpu_torch import native as pnative
 from fwumious_wabbit_tpu_torch.ingest import parser as pparser
 
 from test_torch_standalone import CSV, PIPELINES
-from torch_parity import both_configs, eat_rate_stream
+from torch_parity import (  # noqa: F401 (jax_native_loaded: an autouse fixture)
+    both_configs,
+    eat_rate_stream,
+    jax_native_loaded,
+    require_jax_native,
+)
 
 
 def ingests(csv, argv, threads=3):
@@ -173,3 +178,14 @@ def test_vocab_encoder_matches_jax():
     assert encs[1].encode2(bad, 25, (1 << 25) - 1) is None
     for e in encs:
         e.close()
+
+
+def test_jax_library_loads_after_a_failed_first_attempt(monkeypatch):
+    """torch_parity.require_jax_native: a process whose first load of the
+    JAX package's library failed (the module then keeps None) loads it on
+    the locked retry instead of comparing against JAX's Python path."""
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_lib_tried", True)
+    assert jnative.load() is None
+    lib = require_jax_native()
+    assert lib is not None and jnative.load() is lib

@@ -1,11 +1,15 @@
-"""The port stands alone: in a fresh interpreter where importing jax, jaxlib
-or the JAX package fwumious_wabbit_tpu fails, every module of
+"""The port stands alone: in a fresh interpreter where importing jax, jaxlib,
+the JAX package fwumious_wabbit_tpu or zstandard (which a host may lack)
+fails, every module of
 fwumious_wabbit_tpu_torch imports, a CPU predict runs from a model file the
 port itself writes, on the device engine and on the port's own build of the
 embedded C++ engine (``--fwt_serve_engine native``) with equal predictions,
 and a short CPU training through the CLI's default path (the C++ ingest and
 packed superbatches) writes predictions and a model file with optimizer
-state, its predictions equal to the ``--fwt_no_native`` path's."""
+state, its predictions equal to the ``--fwt_no_native`` path's; and a
+tower (``--nn``) trains twice with ``-c``, recording a raw record cache and
+reading it back, with equal predictions and a model file that keeps its
+tower."""
 
 import subprocess
 import sys
@@ -17,7 +21,7 @@ REPO = Path(__file__).resolve().parents[1]
 SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "fwumious_wabbit_tpu")
+    BLOCKED = ("jax", "jaxlib", "fwumious_wabbit_tpu", "zstandard")
 
     class BlockJax:
         def find_spec(self, name, path=None, target=None):
@@ -86,6 +90,17 @@ SCRIPT = textwrap.dedent("""
     from fwumious_wabbit_tpu_torch.persistence.model_file import load_model
     _, _, trained = load_model(tmp + "/t.fwt", device="cpu")
     assert trained.has_state and float(trained.lr_acc.abs().sum()) > 0
+    tower = train + ["--nn_layers", "1", "--nn", "0:width:4", "--nn",
+                     "0:activation:relu", "-c", "--fwt_pack_cache", "off"]
+    assert main(tower + ["-p", tmp + "/n1.out", "-f", tmp + "/n.fwt",
+                         "--save_resume"]) == 0
+    assert main(tower + ["-p", tmp + "/n2.out"]) == 0
+    n1 = open(tmp + "/n1.out").read()
+    assert n1 == open(tmp + "/n2.out").read() and n1.count("\\n") == 8
+    raw = open(tmp + "/t.vw.fwcache", "rb").read()
+    assert int.from_bytes(raw[8:12], "little") == 0  # no zstandard: raw
+    _, _, towered = load_model(tmp + "/n.fwt", device="cpu")
+    assert towered.has_nn and float(towered.layers[0].w_acc.abs().sum()) > 0
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("imported", len(names), "modules")
 """)

@@ -20,7 +20,11 @@ from fwumious_wabbit_tpu_torch import native as pnative
 from fwumious_wabbit_tpu_torch.train import packed as ppacked
 from fwumious_wabbit_tpu_torch.train.loop import main
 
-from torch_parity import both_configs, eat_rate_stream
+from torch_parity import (  # noqa: F401 (jax_native_loaded: an autouse fixture)
+    both_configs,
+    eat_rate_stream,
+    jax_native_loaded,
+)
 
 
 class MI:

@@ -20,7 +20,11 @@ from fwumious_wabbit_tpu_torch.train import packed as ppacked
 from fwumious_wabbit_tpu_torch.train import producer as pproducer
 from fwumious_wabbit_tpu_torch.train.loop import main
 
-from torch_parity import both_configs, eat_rate_stream
+from torch_parity import (  # noqa: F401 (jax_native_loaded: an autouse fixture)
+    both_configs,
+    eat_rate_stream,
+    jax_native_loaded,
+)
 
 
 def window(groups=3, ex=3 * 8 * 32768, t_work=2.0, t_put=0.1):

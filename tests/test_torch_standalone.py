@@ -34,9 +34,10 @@ from fwumious_wabbit_tpu_torch.ingest import parser as pparser
 from fwumious_wabbit_tpu_torch.ingest import translator as ptranslator
 from fwumious_wabbit_tpu_torch.persistence import model_file as pmf
 
-from torch_parity import (
+from torch_parity import (  # noqa: F401 (jax_native_loaded: an autouse fixture)
     FFM_ARGV,
     config_fields,
+    jax_native_loaded,
     jax_params,
     make_mi,
     make_vw,
@@ -44,6 +45,7 @@ from torch_parity import (
     port_model,
     vw_lines,
 )
+
 
 REPO = Path(__file__).resolve().parents[1]
 JAX_PACKAGE = "fwumious_wabbit_tpu"

@@ -37,3 +37,27 @@ def test_serving_config_matches_bench(tmp_path):
     assert config_fields(mi) == config_fields(want)
     assert (mi.bit_precision, mi.ffm_bit_precision, mi.ffm_k) == (25, 25, 8)
     assert (mi.num_ffm_fields, mi.num_combos) == (2, 14)
+
+
+def test_tower_config_matches_the_baseline_tower(tmp_path):
+    """synthetic.tower_training_config: the full-width LR+FFM k=8 tables
+    (training_config) with BASELINE config 3's tower, the flags of
+    tests/test_baseline_flows.py — equal to the JAX package's
+    configuration of the same flags, field by field."""
+    from fwumious_wabbit_tpu.models.model import FwModel as JaxModel
+
+    data = synthetic.ensure_dataset(tmp_path, 50)
+    mi, _ = synthetic.tower_training_config(data)
+    argv = (bench._base_argv(data) + ["--ffm_k", "8", "--ffm_bit_precision", "25",
+                                      "--ffm_field", "A", "--ffm_field", "B"]
+            + ["--nn_layers", "1", "--nn", "0:width:16", "--nn", "0:activation:relu",
+               "--nn_topology", "one", "--nn_learning_rate", "0.02",
+               "--nn_power_t", "0.5"])
+    want = ModelInstance.from_cmdline(build_parser().parse_args(argv),
+                                      VwNamespaceMap.from_dataset_dir(str(data)))
+    assert config_fields(mi) == config_fields(want)
+    assert want.optimizer == Optimizer.ADAGRAD_LUT
+    assert (mi.power_t, mi.ffm_power_t, mi.nn_power_t) == (0.0, 0.0, 0.5)
+    jmodel = JaxModel(want)
+    assert [s.width for s in jmodel.nn_layers] == [16] and jmodel.topology == "one"
+    assert jmodel.joined_width == 14 + 3

@@ -14,7 +14,15 @@ from fwumious_wabbit_tpu.persistence import model_file as jmf
 from fwumious_wabbit_tpu.train.loop import main as jax_main
 from fwumious_wabbit_tpu_torch.train.loop import main
 
-from torch_parity import BASE_ARGV, FFM_ARGV, make_vw, to_numpy, vw_lines
+from torch_parity import (  # noqa: F401 (jax_native_loaded: an autouse fixture)
+    BASE_ARGV,
+    FFM_ARGV,
+    jax_native_loaded,
+    make_vw,
+    to_numpy,
+    vw_lines,
+)
+
 
 MODEL_ARGV = [a for a in BASE_ARGV if a not in ("--data", "x")] + FFM_ARGV
 
@@ -105,10 +113,37 @@ def test_final_regressor_needs_save_resume(tmp_path):
     assert not (tmp_path / "m.fwt").exists()
 
 
-@pytest.mark.parametrize("extra", [["--nn_layers", "1", "--nn", "0:width:4"],
-                                   ["-c"]], ids=["nn", "cache"])
+@pytest.mark.parametrize("extra", [
+    ["--nn_layers", "1", "--nn", "0:width:4", "--fwt_table_axis", "2"],
+    ["-c", "--fwt_data_axis", "2"]], ids=["nn", "cache"])
 def test_unported_training_modes_are_refused(tmp_path, extra):
+    """A tower and the record cache train (tests/test_torch_tower_cli.py,
+    test_torch_cache.py); asked for with sharding, which is not ported
+    yet, the run is refused and writes nothing."""
     data = data_file(tmp_path)
     assert main(MODEL_ARGV + ["--data", str(data), "--fwt_platform", "cpu",
                               "-p", str(tmp_path / "p.out"), *extra]) == 2
     assert not (tmp_path / "p.out").exists()
+    assert not (tmp_path / "d.vw.fwcache").exists()
+
+
+@pytest.mark.parametrize("path", [["--fwt_superbatch", "2"], ["--fwt_no_native"]],
+                         ids=["native", "python"])
+def test_profile_writes_a_trace(tmp_path, path):
+    """--fwt_profile DIR: a torch.profiler trace of a window of the run's
+    steps (the first left out) in DIR, in the Chrome trace format; the
+    run's predictions as without it."""
+    import json
+
+    data = data_file(tmp_path)
+    argv = MODEL_ARGV + ["--data", str(data), "--fwt_batch_size", "16",
+                         "--fwt_platform", "cpu", *path]
+    prof = tmp_path / "prof"
+    assert main(argv + ["-p", str(tmp_path / "a.out"), "--fwt_profile", str(prof)]) == 0
+    assert main(argv + ["-p", str(tmp_path / "b.out")]) == 0
+    (trace,) = prof.iterdir()
+    assert trace.name.startswith("fwt_trace_") and trace.suffix == ".json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any(n.startswith("aten::") for n in names)
+    assert (tmp_path / "a.out").read_bytes() == (tmp_path / "b.out").read_bytes()

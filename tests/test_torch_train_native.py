@@ -6,6 +6,8 @@ model files within rtol 1e-5 / atol 1e-6 in every table
 (tests/test_torch_train_cli.py's bounds). The port's default path also
 against its own ``--fwt_no_native`` path, and what it refuses."""
 
+import logging
+
 import numpy as np
 import pytest
 
@@ -14,7 +16,10 @@ from fwumious_wabbit_tpu_torch import native
 from fwumious_wabbit_tpu_torch.train.loop import main
 
 from test_torch_train_cli import MODEL_ARGV, assert_same_model, data_file
-from torch_parity import eat_rate_stream
+from torch_parity import (  # noqa: F401 (jax_native_loaded: an autouse fixture)
+    eat_rate_stream,
+    jax_native_loaded,
+)
 
 
 def eat_rate_argv(tmp_path, rows=600):
@@ -69,11 +74,22 @@ def test_default_path_matches_the_python_path(tmp_path, make_argv):
     assert_same_model(qf, pf)
 
 
-def test_record_cache_is_refused(tmp_path):
+def test_record_cache_is_refused(tmp_path, caplog):
+    """A record cache the run cannot use — here one of another cache
+    version — is refused with a warning and rebuilt from the text; the run
+    trains as it does from the text."""
     argv = small_argv(tmp_path) + ["--fwt_platform", "cpu", "-c",
-                                   "-p", str(tmp_path / "p.out")]
-    assert main(argv) == 2
-    assert not (tmp_path / "p.out").exists()
+                                   "--fwt_pack_cache", "off"]
+    cache = tmp_path / "d.vw.fwcache"
+    first, _ = run(main, argv, tmp_path, "first")
+    good = cache.read_bytes()
+    cache.write_bytes(good[:4] + (10).to_bytes(4, "little") + good[8:])
+    with caplog.at_level(logging.WARNING):
+        again, _ = run(main, argv, tmp_path, "again")
+    assert any("cache rejected (cache version 10 != 11)" in r.message
+               for r in caplog.records)
+    assert cache.read_bytes() == good
+    np.testing.assert_array_equal(again, first)
 
 
 def test_no_fallback_when_the_engine_cannot_be_built(tmp_path, monkeypatch):

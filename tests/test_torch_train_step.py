@@ -117,11 +117,17 @@ def test_step_updates_in_place_and_tables_never_require_grad(tmp_path):
 
 
 def test_tower_training_is_refused(tmp_path):
+    """Only the tower the reference refuses is refused (dropout, disabled
+    there too: src/block_neural.rs:82-84); a plain tower initializes and
+    trains (tests/test_torch_tower_step.py holds it to JAX)."""
     make_vw(tmp_path)
+    _, pmi = port_config(tmp_path, FFM_ARGV + ["--nn_layers", "1", "--nn",
+                                               "0:width:4", "--nn", "0:dropout:0.5"])
+    with pytest.raises(ValueError, match="Dropout is not supported"):
+        FwModel(pmi)
     _, pmi = port_config(tmp_path, FFM_ARGV + ["--nn_layers", "1", "--nn", "0:width:4"])
     model = FwModel(pmi)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_train_step(model)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        model.init_params("cpu")
-
+    model.load_params(model.init_params("cpu"))
+    vw, mi, _, _ = build(tmp_path, "lut_p05")
+    (batch,) = batches(vw, mi, vw_lines(8, seed=1), 8)
+    assert make_train_step(model)(_batch_dict(batch)).shape == (8,)

@@ -8,8 +8,15 @@ numpy arrays."""
 from __future__ import annotations
 
 import dataclasses
+import fcntl
+import importlib
+import os
+import subprocess
+import tempfile
+import time
 
 import numpy as np
+import pytest
 
 import jax
 
@@ -137,3 +144,43 @@ def eat_rate_stream(tmp_path, rows: int = 600) -> tuple[str, list[str], bytes]:
     argv[argv.index("--ffm_bit_precision") + 1] = "18"
     return ((tmp_path / synthetic.NAMESPACE_MAP).read_text(), argv,
             data.read_bytes())
+
+
+def require_jax_native():
+    """The JAX package's C++ library, for a test that holds the port to the
+    JAX native path. ``fwumious_wabbit_tpu.native.load()`` runs ``make`` in
+    every process and its Makefile links straight onto the library, so
+    test workers that start at once can link it together, and one that
+    loads a half-written file gets None (and the JAX side then takes its
+    Python path: a different stream). Here the load runs under a file lock
+    shared by the port's tests; a None is retried once after reloading the
+    module (which forgets the failed attempt), and a second None fails the
+    test with make's output — never a skip, never a comparison against the
+    JAX package's Python fallback."""
+    from fwumious_wabbit_tpu import native as jnative
+
+    lock = os.path.join(tempfile.gettempdir(), "fwt_jax_native_load.lock")
+    with open(lock, "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            lib = jnative.load()
+            if lib is None:
+                time.sleep(2.0)  # let a link another process started finish
+                lib = importlib.reload(jnative).load()
+            if lib is None:
+                r = subprocess.run(["make", "-C", str(jnative._DIR), "-s"],
+                                   capture_output=True, text=True)
+                pytest.fail("the JAX package's C++ library did not load after "
+                            f"a locked retry; make exited {r.returncode}:\n"
+                            f"{r.stdout}{r.stderr}")
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+    return lib
+
+
+@pytest.fixture(autouse=True)
+def jax_native_loaded():
+    """Autouse in each test file that imports it: the JAX package's C++
+    library, loaded first and under a lock (:func:`require_jax_native`),
+    for tests that hold the port to the JAX native path."""
+    return require_jax_native()
