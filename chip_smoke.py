@@ -106,6 +106,25 @@ Phases, each raising on failure (exit code 1, and no result line):
    decimal of 7b's 1M run; the codec, the cache's bytes and both runs' ex/s;
    then ``--build_cache_without_training`` on the 10k file, whose cache
    equals the one a recording run writes for that file;
+7f. ``--convert_inference_regressor`` of phase 7's default-path model
+   (538,968,064 bytes of tables with their AdaGrad state), as is and with
+   ``--weight_quantization``, on the card and with ``--fwt_platform cpu``:
+   the two files byte-equal; each converted file's ``-t -i`` on the card
+   and on the embedded C++ engine (``--fwt_serve_engine native``) over the
+   10k file within 2e-6 of the unconverted model's plain predictions
+   (quantized: within 5e-3, the JAX package's quantization tests' bound)
+   and of each other; then the weight patcher's C++ tool, built at first
+   use, between phase 7's two default-path model files (card and CPU):
+   ``recreate`` rebuilds the second byte for byte; its time and the diff's
+   size; and the Python path on two small models, its payload equal to
+   the C++ tool's;
+7g. the sharded step (parallel/sharded.py) on an NCCL group of one rank,
+   mesh 1×1: psum and a2a over 10 full-width B=1024 steps of the LR+FFM
+   training configuration, and a2a with the tower, each against
+   ``make_train_step`` on the card over the same batches: predictions
+   within 1e-6, every table and tower tensor within 1e-5·(1+max|·|), with
+   whether they are bit-identical, the kernels' launches per step and the
+   wall time per step beside the plain step's;
 8. the fused FFM kernels at the main path's inputs (the serving model's
    table, the data's first 256 and 1024 lines as the CLI batches them):
    wall time per call from CUDA events and device time per call from
@@ -117,7 +136,8 @@ Phases, each raising on failure (exit code 1, and no result line):
    launches per step).
 
 Each main path (6, the two training paths of 7, each run of 7b, the two
-tower paths of 7c, the 1M run of 7d and both runs of 7e) runs with the
+tower paths of 7c, the 1M run of 7d, both runs of 7e and the three sharded
+runs of 7g) runs with the
 kernels' launch counters set to 0 just before it and read just after: the
 FFM forward must have launched in serving, all three kernels in each
 training path. Each phase prints its seconds. The dataset's child process
@@ -126,7 +146,8 @@ is ended before the script exits, whatever the outcome. The script prints the ke
 per train step from the 10k --fwt_no_native run and per packed train
 step from the first 1M default run, both main paths; its launches on the
 10k default path; and its error, times, bytes and bound at the default
-path's step, ``default_path_step``; its launches per tower step; no single
+path's step, ``default_path_step``; its launches per tower step and per
+sharded step of each 7g run; no single
 PyTorch call computes any of the three, so library_ms is null), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. It needs
 one card and no network.
@@ -1847,6 +1868,218 @@ def cache_phase(data: Path, big: Path, default_preds) -> dict:
     return {**out, "codec": codec, "bytes": nbytes}
 
 
+# -- phase 7f: convert and the weight patcher; 7g: the sharded step ----------------
+
+# the bound of the JAX package's quantization tests on the predictions of a
+# quantized model (tests/test_ffi.py:121, tests/test_inputs_and_config.py:113)
+QUANT_ATOL = 5e-3
+SHARDED_STEPS = 10
+
+
+def convert_phase(data: Path, trained: Path) -> dict:
+    """7f: --convert_inference_regressor of phase 7's trained model (the
+    default path's, with its AdaGrad state) on the card and with
+    --fwt_platform cpu, as is and with --weight_quantization: the two
+    files byte-equal; each converted file's -t -i on the card and on the
+    embedded C++ engine over the 10k file, against the unconverted
+    model's plain predictions (within 2e-6, or QUANT_ATOL quantized) and
+    against each other (within 2e-6)."""
+    import numpy as np
+
+    from fwumious_wabbit_tpu_torch.train.loop import main
+
+    want = plain_predictions(trained, data)
+    out = {"input_bytes": trained.stat().st_size}
+    for quant in (False, True):
+        tag = "quantized" if quant else "plain"
+        q = ["--weight_quantization"] if quant else []
+        files, secs = {}, {}
+        for where, extra in (("card", []), ("cpu", ["--fwt_platform", "cpu"])):
+            path = data.with_name(f"chip_smoke_convert_{tag}_{where}.fwt")
+            t0 = time.perf_counter()
+            rc = main(["--convert_inference_regressor", str(path), "-i",
+                       str(trained), *q, *extra])
+            secs[where] = time.perf_counter() - t0
+            check(rc == 0, f"convert ({tag}, {where}) exited {rc}")
+            files[where] = path
+        check(files["card"].read_bytes() == files["cpu"].read_bytes(),
+              f"convert ({tag}): the card's file differs from the CPU's")
+        files["cpu"].unlink()
+        preds = {}
+        for engine, extra in (("device", []),
+                              ("native", ["--fwt_serve_engine", "native"])):
+            p = data.with_name(f"chip_smoke_convert_{tag}_{engine}.out")
+            rc = main(["-t", "-i", str(files["card"]), "--data", str(data),
+                       "-p", str(p), *extra])
+            check(rc == 0, f"-t -i of the {tag} converted model ({engine}) "
+                           f"exited {rc}")
+            preds[engine] = np.array([float(x) for x in p.read_text().split()])
+            check(preds[engine].shape == want.shape and valid_preds(preds[engine]),
+                  f"{tag} converted model ({engine}): bad predictions")
+        bound = QUANT_ATOL if quant else REPLY_ATOL
+        err = {e: float(np.abs(v - want).max()) for e, v in preds.items()}
+        engines = float(np.abs(preds["device"] - preds["native"]).max())
+        check(max(err.values()) <= bound, f"{tag} converted model: max |pred − "
+                                          f"unconverted plain| {err} > {bound}")
+        check(engines <= REPLY_ATOL, f"{tag} converted model: the engines differ "
+                                     f"by {engines}")
+        size = files["card"].stat().st_size
+        print(f"convert ({tag}): {size} bytes from {out['input_bytes']}, "
+              f"{secs['card']:.2f} s on the card, {secs['cpu']:.2f} s with "
+              f"--fwt_platform cpu, the two files byte-equal; -t -i over "
+              f"{want.size} lines: card max |pred − unconverted plain| = "
+              f"{err['device']!r}, embedded C++ engine {err['native']!r} (bound "
+              f"{bound!r}), engines within {engines!r}", flush=True)
+        out[tag] = {"bytes": size, "seconds": secs, "max_abs_err": err,
+                    "engines_max_abs_diff": engines}
+        files["card"].unlink()
+    return out
+
+
+def patcher_phase(a: Path, b: Path, data: Path) -> dict:
+    """7f: the weight patcher's C++ tool, built at first use from the port's
+    sources, between two full-width model files of phase 7 (the default
+    path's, trained on the card and on the CPU): ``recreate`` rebuilds the
+    second byte for byte; then the Python path on two small models, whose
+    diff payload equals the C++ tool's."""
+    import gzip
+
+    from fwumious_wabbit_tpu_torch import native, synthetic
+    from fwumious_wabbit_tpu_torch.tools import weight_patcher as wp
+
+    t0 = time.perf_counter()
+    exe = native.weight_patcher()
+    build_s = time.perf_counter() - t0
+    diff, rebuilt = data.with_name("chip_smoke_patch.gz"), data.with_name("chip_smoke_rebuilt.fwt")
+    t0 = time.perf_counter()
+    wp.create_diff(a, b, diff)
+    create_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wp.recreate(a, diff, rebuilt)
+    recreate_s = time.perf_counter() - t0
+    check(rebuilt.read_bytes() == b.read_bytes(),
+          "weight patcher: recreate did not rebuild the second model file")
+    diff_bytes = diff.stat().st_size
+    changed = len(gzip.decompress(diff.read_bytes()))
+    rebuilt.unlink()
+
+    mi, vw = synthetic.serving_config(data)
+    mi.bit_precision = mi.ffm_bit_precision = 12
+    small = [data.with_name(f"chip_smoke_small_{i}.fwt") for i in (0, 1)]
+    for path, seed in zip(small, (SEED, SEED + 1)):
+        write_model(path, mi, vw, seed)
+    pd, cd = data.with_name("chip_smoke_small.py.gz"), data.with_name("chip_smoke_small.cc.gz")
+    t0 = time.perf_counter()
+    wp.create_diff(small[0], small[1], pd, use_native=False)
+    wp.recreate(small[0], pd, rebuilt, use_native=False)
+    py_s = time.perf_counter() - t0
+    wp.create_diff(small[0], small[1], cd, use_native=True)
+    check(rebuilt.read_bytes() == small[1].read_bytes(),
+          "weight patcher: the Python path did not rebuild the small model")
+    check(gzip.decompress(pd.read_bytes()) == gzip.decompress(cd.read_bytes()),
+          "weight patcher: the Python and C++ diffs differ")
+    print(f"weight patcher: C++ tool {exe.name} built in {build_s:.2f} s; "
+          f"create_diff of two {b.stat().st_size}-byte model files "
+          f"{create_s:.2f} s, diff {diff_bytes} bytes gzipped ({changed} bytes "
+          f"of entries), recreate {recreate_s:.2f} s, byte for byte; the Python "
+          f"path on {small[1].stat().st_size}-byte models {py_s:.2f} s, its "
+          f"payload equal to the C++ tool's", flush=True)
+    for path in (diff, rebuilt, pd, cd, *small):
+        path.unlink()
+    return {"build_s": build_s, "create_s": create_s, "recreate_s": recreate_s,
+            "diff_bytes": diff_bytes, "entry_bytes": changed,
+            "model_bytes": b.stat().st_size, "python_s": py_s}
+
+
+def sharded_phase(data: Path, device) -> dict:
+    """7g: the sharded step (parallel/sharded.py) on an NCCL group of one
+    rank, mesh 1×1: ``make_sharded_train_step`` with psum and with a2a for
+    SHARDED_STEPS full-width B=1024 steps of the LR+FFM training
+    configuration, and a2a once with the tower; each a main path (the
+    launch counts set to 0 just before it), held against
+    ``train/step.make_train_step`` on the card over the same batches (the
+    host counts left out of both): predictions within 1e-6, every table and
+    tower tensor within 1e-5·(1+max|·|), with whether they are
+    bit-identical, and each step's wall time beside the plain step's."""
+    import numpy as np
+    import torch
+
+    from fwumious_wabbit_tpu_torch import synthetic
+    from fwumious_wabbit_tpu_torch.models.model import FwModel
+    from fwumious_wabbit_tpu_torch.parallel import distributed, sharded
+    from fwumious_wabbit_tpu_torch.parallel import mesh as pmesh
+    from fwumious_wabbit_tpu_torch.train import step as st
+
+    distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, None)
+    import torch.distributed as dist
+
+    check(dist.get_backend() == "nccl", f"the group's backend is {dist.get_backend()}")
+    mesh = pmesh.Mesh(1, 1)
+    # a group's first collective creates its NCCL communicator: once here,
+    # outside the timed steps
+    x = torch.zeros(2, device=device)
+    dist.all_reduce(x)
+    dist.all_to_all_single(torch.empty_like(x), x)
+    pmesh.all_gather(x, mesh.world_group, 1)
+    torch.cuda.synchronize()
+    out = {}
+    for cfg, config, exchanges in (("lr_ffm", None, ("psum", "a2a")),
+                                   ("tower", synthetic.tower_training_config, ("a2a",))):
+        ref, hb, _ = train_batches(data, device, SHARDED_STEPS, config)
+        batches = [st.to_device(b, sharded.KEYS, device) for b in hb]
+        step = st.make_train_step(ref)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = torch.stack([step(b) for b in batches]).cpu().numpy()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+        want_t = model_tensors(ref)
+        for ex in exchanges:
+            model = FwModel(ref.mi)
+            model.load_params(model.init_params(device))
+            pmesh.shard_model(model, mesh)
+            sstep = sharded.make_sharded_train_step(model, mesh, ex, with_stats=True)
+            reset_launch_counts()  # a main path starts here
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = [sstep(b) for b in batches]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / len(batches) * 1e3
+            launches = launch_counts()
+            what = f"sharded step ({cfg}, {ex}, mesh 1x1, NCCL)"
+            for name, n in launches.items():
+                check(n > 0, f"{what} never launched the {name} kernel")
+            got = torch.stack([p for p, _ in res]).cpu().numpy()
+            dropped = int(sum(int(s["a2a_dropped"]) for _, s in res))
+            check(dropped == 0, f"{what}: {dropped} a2a occurrences dropped")
+            pred_err = float(np.abs(got - want).max())
+            check(valid_preds(got) and pred_err <= 1e-6,
+                  f"{what}: predictions differ from make_train_step by {pred_err}")
+            got_t, errs, identical = model_tensors(model), {}, bool((got == want).all())
+            for key, w in want_t.items():
+                g = got_t[key]
+                errs[key] = (g - w).abs().max().item()
+                bound = TRAIN_ATOL * (1.0 + w.abs().max().item())
+                check(errs[key] <= bound, f"{what}: {key} differs by {errs[key]} > {bound}")
+                identical = identical and bool(torch.equal(g, w))
+            per_step = {k: v / len(batches) for k, v in launches.items()}
+            print(f"{what}: {len(batches)} steps of B={TRAIN_BATCH}, predictions "
+                  f"max |diff| vs make_train_step {pred_err!r} (bound 1e-6), "
+                  f"tensors max |diff| {json.dumps(errs)} (bound "
+                  f"1e-5·(1+max|·|)), bit-identical: {identical}; launches per "
+                  f"step {json.dumps(per_step)}; {ms:.3f} ms per step wall, "
+                  f"make_train_step {plain_ms:.3f} ms", flush=True)
+            out[f"{cfg}_{ex}"] = {"pred_err": pred_err, "tensor_err": errs,
+                                  "identical": identical, "launches": launches,
+                                  "launches_per_step": per_step, "ms": ms,
+                                  "plain_ms": plain_ms}
+            del model, sstep, res
+        del ref, step
+        torch.cuda.empty_cache()
+    distributed.shutdown()
+    return out
+
+
 def step_bound(step_upd: dict) -> dict:
     """The sparse update's bound per train step: its LR and FFM calls."""
     lr, fm = step_upd["lr_bound"], step_upd["ffm_bound"]
@@ -1965,6 +2198,12 @@ def main() -> int:
         del packed
     with phase("7e record cache"):
         rc_cache = cache_phase(data, big["path"], big["preds"])
+    with phase("7f convert and weight patcher"):
+        conv = convert_phase(data, nat["fwt"])
+        patch = patcher_phase(data.with_name("chip_smoke_train_native_cpu.fwt"),
+                              nat["fwt"], data)
+    with phase("7g sharded step"):
+        shd = sharded_phase(data, device)
     tower_kernels = (trate["profile"]["device_kernels_per_step"]
                      - prof["device_kernels_per_step"])
     print(f"timing: packed tower train steps at full width (K=8, B=1024), per "
@@ -2059,6 +2298,18 @@ def main() -> int:
             nkern["update"][name + "_plain_ms"], nkern["update"][name + "_device"])
             + f"; bound {json.dumps(nkern['update'][name + '_bound'])}", flush=True)
         print(f"  on {card}", flush=True)
+    for name, r in shd.items():
+        print(f"timing: sharded step ({name}, mesh 1x1, NCCL) {r['ms']:.3f} ms "
+              f"per B={TRAIN_BATCH} step wall, make_train_step "
+              f"{r['plain_ms']:.3f} ms", flush=True)
+        print(f"  on {card}", flush=True)
+    print(f"timing: convert of a {conv['input_bytes']}-byte model: plain "
+          f"{conv['plain']['seconds']['card']:.2f} s, quantized "
+          f"{conv['quantized']['seconds']['card']:.2f} s on the card; weight "
+          f"patcher create_diff {patch['create_s']:.2f} s, recreate "
+          f"{patch['recreate_s']:.2f} s, diff {patch['diff_bytes']} bytes",
+          flush=True)
+    print(f"  on {card}", flush=True)
     PHASE_SECONDS["8 ffm timing"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     layers = layer_breakdown(paths[0], data.read_bytes().splitlines(True), device)
@@ -2095,7 +2346,11 @@ def main() -> int:
                 "launches_per_tower_step": twr["python"]["launches"][kernel]
                 / tower_steps_10k,
                 "launches_per_packed_tower_step":
-                    trate["run"]["launches_per_step"][kernel]}
+                    trate["run"]["launches_per_step"][kernel],
+                "launches_on_the_sharded_path": {
+                    k: v["launches"][kernel] for k, v in shd.items()},
+                "launches_per_sharded_step": {
+                    k: v["launches_per_step"][kernel] for k, v in shd.items()}}
     print(json.dumps({"kernels": [
         kernel_row("ffm_triangle", "ffm_triangle.cu",
                    "fwumious_wabbit_tpu/ops/pallas/ffm.py:131 (with the slab "

@@ -329,24 +329,30 @@ class FwModel(nn.Module):
         out = contrib.new_zeros((contrib.shape[0], self.num_combos))
         return out.scatter_add_(1, torch.where(valid, combos, 0), contrib)
 
-    def ffm_outputs(self, batch: dict, emb_leaf: torch.Tensor | None = None
-                    ) -> torch.Tensor:
+    def ffm_outputs(self, batch: dict, emb_leaf: torch.Tensor | None = None,
+                    rows: tuple | None = None) -> torch.Tensor:
         """[B, F(F+1)/2] interaction triangle through ops/ffm.FfmFused: the
         slabs of the FFM ids are read from ``ffm_w`` inside the kernel (the
         kernel pair on the card). With ``emb_leaf`` (ops/ffm.slab_leaf) the
         gradient with respect to the gathered slabs flows to it.
         ``ffm_vals`` may be left out when all ones: the kernels then read a
-        ones tensor, made once per shape."""
-        ids = batch["ffm_ids"].to(torch.int32).contiguous()
+        ones tensor, made once per shape. ``rows`` = ``(table, ids, spec)``
+        reads the slabs from another table (the rows a sharded step
+        exchanged, parallel/sharded.py) by other ids of the same shape."""
+        table, spec = self.ffm_w, self.ffm_spec
+        if rows is None:
+            ids = batch["ffm_ids"].to(torch.int32).contiguous()
+        else:
+            table, ids, spec = rows
         vals = batch.get("ffm_vals")
         if vals is None:
             key = (tuple(ids.shape), ids.device)
             vals = self._ones.get(key)
             if vals is None:
                 vals = self._ones[key] = torch.ones(ids.shape, device=ids.device)
-        return FfmFused.apply(emb_leaf, self.ffm_w, ids, vals.contiguous(),
+        return FfmFused.apply(emb_leaf, table, ids, vals.contiguous(),
                               batch["ffm_fields"].to(torch.int32).contiguous(),
-                              self.num_fields, self.ffm_k, self.ffm_spec)
+                              self.num_fields, self.ffm_k, spec)
 
     def tower(self, x: torch.Tensor) -> torch.Tensor:
         """Dense tower + final readout → [B] logits (predict path)."""

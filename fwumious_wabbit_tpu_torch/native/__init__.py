@@ -9,7 +9,9 @@ ingest: :class:`NativeIngest` (parse + translate + batch fill, host counts,
 the fused wire emit), :class:`VocabEncoder` and the bit-packers
 (:func:`bitpack_ids`, :func:`bitpack_mixed`, :func:`counts_table`), which
 train/packed.py and train/producer.py drive, with the record cache's
-bindings (``translate_records``, ``records_consumed``, ``records``).
+bindings (``translate_records``, ``records_consumed``, ``records``),
+and the build of the model-diff tool ``weight_patcher.cpp``
+(:func:`weight_patcher`, for tools/weight_patcher.py).
 ``persistence/quantization.py`` binds its F16C helpers on the library
 :func:`load` returns.
 
@@ -58,32 +60,59 @@ def _cpu_key() -> bytes:
     return os.uname().machine.encode()
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXXFLAGS).encode())
+def _hashed(stem: str, suffix: str, flags: list, names) -> Path:
+    """``BUILD_DIR/<stem>-<hash><suffix>``, the hash of the flags, this
+    host's CPU and the sources ``names``."""
+    h = hashlib.sha256(" ".join(flags).encode())
     h.update(_cpu_key())
-    for name in (*SOURCES, "fw_core.h"):
+    for name in names:
         h.update(name.encode())
         h.update((_DIR / name).read_bytes())
-    return BUILD_DIR / f"libfw_native-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}{suffix}"
 
 
-def _build(so: Path) -> None:
-    """Compile the library to a temporary name and rename it into place,
+def library_path() -> Path:
+    return _hashed("libfw_native", ".so", CXXFLAGS, (*SOURCES, "fw_core.h"))
+
+
+def _build(target: Path, sources, flags: list, libs=()) -> None:
+    """Compile ``target`` to a temporary name and rename it into place,
     holding a file lock so concurrent processes build it once."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "libfw_native.lock", "w") as lock:
+    stem = target.name.split("-")[0]
+    with open(BUILD_DIR / f"{stem}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if so.exists():
+        if target.exists():
             return
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [os.environ.get("CXX", "g++"), *CXXFLAGS, "-o", str(tmp),
-               *(str(_DIR / s) for s in SOURCES)]
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [os.environ.get("CXX", "g++"), *flags, "-o", str(tmp),
+               *(str(_DIR / s) for s in sources), *libs]
         r = subprocess.run(cmd, capture_output=True, text=True)
         if r.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"g++ failed ({r.returncode}): {' '.join(cmd)}\n"
                                f"{r.stderr}")
-        os.replace(tmp, so)
+        os.replace(tmp, target)
+
+
+# the model-diff tool (tools/weight_patcher.py), an executable linked with
+# zlib, with the JAX package's Makefile flags (its native/Makefile:14-15)
+PATCHER_SOURCE = "weight_patcher.cpp"
+PATCHER_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall",
+                 "-Wextra", "-ffp-contract=off"]
+
+
+def patcher_path() -> Path:
+    return _hashed("weight_patcher", "", PATCHER_FLAGS, (PATCHER_SOURCE,))
+
+
+def weight_patcher() -> Path:
+    """The weight patcher executable, built by g++ on first use; raises
+    RuntimeError with the compiler's message when it cannot be built."""
+    exe = patcher_path()
+    if not exe.exists():
+        _build(exe, (PATCHER_SOURCE,), PATCHER_FLAGS, ("-lz",))
+    return exe
 
 
 def load():
@@ -97,7 +126,7 @@ def load():
         try:
             so = library_path()
             if not so.exists():
-                _build(so)
+                _build(so, SOURCES, CXXFLAGS)
             lib = ctypes.CDLL(str(so))
         except Exception as e:  # noqa: BLE001 — reported by require()
             load_error = str(e)

@@ -103,12 +103,27 @@ def _nn_layer_bytes(layer: dict, with_state: bool) -> bytes:
     return out
 
 
+def _fetch_global(model: FwModel) -> dict:
+    """``model``'s params with whole tables: under a mesh (parallel/mesh.py
+    ``shard_model``) each table's row blocks are gathered to every rank and
+    the mesh padding cut off (fwumious_wabbit_tpu/persistence/
+    model_file.py:94-112), so every rank writes the same file. A collective
+    then: every rank of the mesh saves."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        return model.params()
+    from ..parallel import mesh as pmesh
+
+    return pmesh.gather_tables(model.params(), mesh, pmesh.table_rows(model))
+
+
 def save_model(path: str | Path, mi: ModelInstance, vw: VwNamespaceMap,
                model: FwModel, quantize_weights: bool = False) -> None:
     """Write ``model``'s weights (and optimizer state, when the optimizer
-    keeps it) to ``path``, atomically: a sibling temp file is renamed into
+    keeps it) to ``path``, atomically (under a mesh, gathered first:
+    :func:`_fetch_global`): a sibling temp file is renamed into
     place, so a reader never sees a truncated model."""
-    params = model.params()
+    params = _fetch_global(model)
     has_state = model.has_state
     tmp = str(path) + ".writing"
     with open(tmp, "wb") as fh:

@@ -10,7 +10,9 @@ fwumious_wabbit_tpu/train/loop.py, for the modes ported so far:
   ``--holdout_after``, ``--prediction_model_delay``, ``--fwt_exact`` (batch
   1) and ``--fwt_batch_size`` keep their meaning;
 * ``-t`` (with or without ``-i``): the same loop without updates;
-* ``--build_cache_without_training``: the record cache only.
+* ``--build_cache_without_training``: the record cache only;
+* ``--convert_inference_regressor OUT -i IN [--weight_quantization]``: the
+  inference form of a model file (:func:`convert`).
 
 Training takes a dense tower (``--nn``, its manual backward and dense
 update on the device, train/step.py) as the JAX CLI does, and ``-c`` reads
@@ -38,8 +40,14 @@ which quietly trains on the Python path when its C++ library does not load,
 the default path here fails with the compiler's message and exits
 non-zero: only ``--fwt_no_native`` chooses the Python ingest.
 
-Any other mode exits non-zero with "not yet ported": convert, sharding.
-The flag vocabulary is the JAX package's (the port's copy in
+Under a mesh (``--fwt_data_axis``/``--fwt_table_axis``, and a process
+group of as many ranks, one per device: ``--fwt_hosts N --fwt_host_id r
+--fwt_coordinator host:port``, :func:`_join`), every rank reads the whole
+input, trains its shard of each batch through parallel/sharded.py on its
+own row blocks of the tables, gathers the predictions back in one global
+order and writes the whole ``-p`` stream, and ``-f`` gathers the tables:
+every rank writes the same file. Batches are not packed under a mesh, as
+in the JAX CLI. The flag vocabulary is the JAX package's (the port's copy in
 config/cmdline.py).
 Every mode runs on the CUDA card; the CPU only with ``--fwt_platform cpu``.
 ``--fwt_serve_engine`` keeps its meaning, except that ``auto`` means the
@@ -103,14 +111,37 @@ def _daemonize() -> None:
     os.close(devnull)
 
 
-def _not_ported(args) -> str | None:
-    """Why ``args`` asks for a mode this package does not run yet, or None."""
-    if args.convert_inference_regressor:
-        return "--convert_inference_regressor"
-    if int(args.fwt_table_axis or 1) > 1 or (args.fwt_data_axis or 1) > 1 \
-            or args.fwt_hosts:
-        return "multi-device sharding (--fwt_table_axis/--fwt_data_axis/--fwt_hosts)"
-    return None
+def _join(args):
+    """``(device, mesh or None)``: with ``--fwt_hosts``/``--fwt_coordinator``
+    this process joins the process group as rank ``--fwt_host_id`` on its
+    own card (gloo and the CPU with ``--fwt_platform cpu``,
+    parallel/distributed.py); a mesh — ``--fwt_data_axis`` ×
+    ``--fwt_table_axis``, or every rank on data — is made when the axes ask
+    for more than one device or the group has more than one rank. One
+    process per device: a mesh must have exactly the group's ranks, and
+    one that does not raises ValueError naming the flags."""
+    from ..parallel import distributed
+
+    n_table = int(args.fwt_table_axis or 1)
+    n_data = args.fwt_data_axis
+    if distributed.wanted(args.fwt_coordinator, args.fwt_hosts):
+        device = distributed.initialize(args.fwt_coordinator, args.fwt_hosts,
+                                        args.fwt_host_id, args.fwt_platform)
+    else:
+        device = resolve_device(args.fwt_platform)
+    world = distributed.world_size()
+    if n_table <= 1 and (n_data is None or n_data <= 1) and world == 1:
+        return device, None
+    n_data = int(n_data) if n_data is not None else max(1, world // n_table)
+    if n_data * n_table != world:
+        raise ValueError(
+            f"a {n_data}x{n_table} mesh (--fwt_data_axis x --fwt_table_axis) "
+            f"needs {n_data * n_table} ranks, one process per device; this "
+            f"run has {world}: start that many with --fwt_hosts N "
+            f"--fwt_host_id r --fwt_coordinator host:port")
+    from ..parallel import mesh as pmesh
+
+    return device, pmesh.Mesh(n_data, n_table)
 
 
 def record_stream(args, vw):
@@ -278,6 +309,11 @@ class _Run:
         self.testonly = bool(args.testonly)
         self.batch_size = (1 if args.fwt_exact
                            else max(1, int(args.fwt_batch_size or 1024)))
+        # under a mesh (the model's tables are this rank's row blocks): the
+        # sharded steps, each batch cut to this rank's shard and the
+        # predictions gathered back in one global order
+        self.mesh = getattr(model, "mesh", None)
+        self.dropped = None  # the a2a overflow count, summed on the device
         self.predictions_after = int(args.predictions_after or 0)
         self.holdout_after = (int(args.holdout_after)
                               if args.holdout_after is not None else None)
@@ -287,8 +323,11 @@ class _Run:
         self.delay = int(args.prediction_model_delay or 0)
         self.writer = PredictionWriter(args.predictions,
                                        bool(args.predictions_stdout))
-        self.train_step = None if self.testonly else make_train_step(model)
-        self.predict_step = make_predict_step(model)
+        if self.mesh is None:
+            self.train_step = None if self.testonly else make_train_step(model)
+            self.predict_step = make_predict_step(model)
+        else:
+            self._sharded(args, model)
         # host multiplicity counts for the scopes with the batch-mean cap,
         # keyed per weight for LR (id) and per window for FFM (id >> log2
         # align)
@@ -317,6 +356,35 @@ class _Run:
         self.t0, self.t0_cpu = time.time(), time.process_time()
         self.t0_thread = time.thread_time()  # the consumer thread's CPU
         self.wt.start()
+
+    def _sharded(self, args, model) -> None:
+        """The mesh branch (fwumious_wabbit_tpu/train/loop.py:161-219):
+        the exchange (``auto`` = a2a when the table axis is > 1), the batch
+        rounded up to the shard count, the sharded train and predict
+        steps."""
+        from ..parallel import mesh as pmesh
+        from ..parallel import sharded
+
+        mesh = self.mesh
+        exchange = sharded.resolve_exchange(args.fwt_exchange or "auto", mesh)
+        self.both_axes = exchange == "a2a"
+        nshard = mesh.shards(self.both_axes)[0]
+        self.batch_size = pmesh.round_up(self.batch_size, nshard)
+        log.info("mesh: %s exchange=%s (batch %d)", mesh.shape, exchange,
+                 self.batch_size)
+        step = (None if self.testonly else sharded.make_sharded_train_step(
+            model, mesh, exchange, float(args.fwt_a2a_capacity or 2.0),
+            with_stats=True))
+
+        def train_step(bd):
+            p, stats = step(bd)
+            d = stats["a2a_dropped"]
+            self.dropped = d if self.dropped is None else self.dropped + d
+            return p
+
+        self.train_step = None if step is None else train_step
+        self.predict_step = sharded.make_sharded_predict_step(model, mesh,
+                                                              exchange)
 
     def _write_preds(self) -> None:
         """The writer thread: one fetch per item — [B] from a single step,
@@ -369,6 +437,10 @@ class _Run:
         first_num = self.count(n)
         update = not self.testonly and (self.holdout_after is None
                                         or first_num < self.holdout_after)
+        if self.mesh is not None:
+            from ..parallel import mesh as pmesh
+
+            bd = pmesh.shard_batch(bd, self.mesh, self.both_axes)
         t1 = time.perf_counter()
         if self.delay == 0:
             preds = self.train_step(bd) if update else self.predict_step(bd)
@@ -387,6 +459,13 @@ class _Run:
                 if self.train_step is not None:
                     self.train_step(old_bd)
         self.profile_step()
+        if self.mesh is not None:
+            # every rank writes the whole stream: gathered here, on the main
+            # thread, so the collectives keep one global order; on every
+            # rank, with -p or without, so that none waits for another
+            from ..parallel import mesh as pmesh
+
+            preds = pmesh.gather_batch(preds, self.mesh, self.both_axes)
         if self.writer.active:
             self.fetch(preds, [(first_num, n)])
 
@@ -403,12 +482,20 @@ class _Run:
         self.close()
         if self.werr:
             raise self.werr[0]
+        dropped = int(self.dropped) if self.dropped is not None else 0
+        if dropped > 0:
+            log.warning(
+                "a2a exchange dropped %d occurrence(s) past the static "
+                "per-destination capacity this run (their lookups read zero "
+                "and their updates were skipped) — raise --fwt_a2a_capacity "
+                "if the id distribution is skewed", dropped)
         elapsed = time.time() - self.t0
         self.ctr.setdefault("cpu_s_by_thread", {})["consumer"] = (
             time.thread_time() - self.t0_thread)
         log.info("Elapsed: %.2fs rows: %d (%.0f ex/s)", elapsed,
                  self.example_num, self.example_num / max(elapsed, 1e-9))
         return {"examples": self.example_num, "elapsed": elapsed,
+                "a2a_dropped": dropped,
                 "counters": dict(self.ctr, elapsed_s=elapsed,
                                  process_cpu_s=time.process_time() - self.t0_cpu)}
 
@@ -488,7 +575,8 @@ def _native_ingest(args, mi, vw, model, run: _Run) -> None:
     if K <= 0:
         K = 8
     ctr, batch_size = run.ctr, run.batch_size
-    can_pack = K > 1 and run.delay == 0 and run.train_step is not None
+    can_pack = (K > 1 and run.delay == 0 and run.train_step is not None
+                and run.mesh is None)
     bitpack_on = (args.fwt_bitpack or "auto") != "off"
     # the producer owns the persistent per-column dictionaries; a full
     # snapshot rides the queue ahead of any group that grew them
@@ -602,15 +690,38 @@ def _native_ingest(args, mi, vw, model, run: _Run) -> None:
         vocab_state.close()
 
 
+def convert(args) -> int:
+    """``--convert_inference_regressor OUT -i IN``: the inference form of a
+    model file — its weights without optimizer state, the configuration
+    turned to SGD, and with ``--weight_quantization`` the FFM weights as
+    f16 buckets, marked to be dequantized on load
+    (fwumious_wabbit_tpu/train/loop.py:785-800). The weights pass through
+    the device untouched, so the card and the CPU write the same bytes."""
+    from ..persistence import model_file
+
+    if not args.initial_regressor:
+        log.error("Convert mode requires --initial_regressor")
+        return 1
+    try:
+        device = resolve_device(args.fwt_platform)
+    except (NoDeviceError, ValueError) as e:
+        log.error("%s", e)
+        return 1
+    mi, vw, model = model_file.load_model(args.initial_regressor,
+                                          immutable=True, args=args,
+                                          device=device)
+    if args.weight_quantization:
+        mi.dequantize_weights = True
+    model_file.save_model(args.convert_inference_regressor, mi, vw, model,
+                          quantize_weights=bool(args.weight_quantization))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.quiet:
         logging.getLogger().setLevel(logging.WARNING)
 
-    why = _not_ported(args)
-    if why is not None:
-        log.error("not yet ported: %s", why)
-        return 2
     if args.final_regressor and not args.save_resume:
         log.error("You need to use --save_resume with --final_regressor,"
                   " for vowpal wabbit compatibility")
@@ -635,10 +746,12 @@ def main(argv=None) -> int:
             return 1
         return 0
 
-    from ..models.model import FwModel
+    from ..parallel import distributed
     from ..persistence import model_file
     from ..serve.server import Serving
 
+    if args.convert_inference_regressor and not args.daemon:
+        return convert(args)
     if args.daemon and engine == "native":
         mi, vw = model_file.read_header(args.initial_regressor)
         Serving(args, mi, vw, None, model_path=args.initial_regressor).serve()
@@ -655,16 +768,32 @@ def main(argv=None) -> int:
         build_cache_without_training(args, vw)
         return 0
 
-    try:
-        device = resolve_device(args.fwt_platform)
-    except (NoDeviceError, ValueError) as e:
-        log.error("%s", e)
-        return 1
     if args.daemon:
+        try:
+            device = resolve_device(args.fwt_platform)
+        except (NoDeviceError, ValueError) as e:
+            log.error("%s", e)
+            return 1
         mi, vw, model = model_file.load_model(
             args.initial_regressor, immutable=True, args=args, device=device)
         Serving(args, mi, vw, model, model_path=args.initial_regressor).serve()
         return 0
+    try:
+        try:
+            device, mesh = _join(args)
+        except (NoDeviceError, ValueError) as e:
+            log.error("%s", e)
+            return 1
+        return _train(args, device, mesh)
+    finally:
+        distributed.shutdown()
+
+
+def _train(args, device, mesh) -> int:
+    """Training or ``-t`` on ``device``: the model from ``-i`` or fresh,
+    this rank's row blocks of it under a mesh, the loop, ``-f``."""
+    from ..models.model import FwModel
+    from ..persistence import model_file
 
     if args.initial_regressor:
         mi, vw, model = model_file.load_model(
@@ -679,6 +808,10 @@ def main(argv=None) -> int:
         model = FwModel(mi, batch_mean_mode=args.fwt_batch_mean or "auto",
                         batch_cap=float(args.fwt_batch_cap or 8.0))
         model.load_params(model.init_params(device))
+    if mesh is not None:
+        from ..parallel import mesh as pmesh
+
+        pmesh.shard_model(model, mesh)
     if not args.fwt_no_native:
         from .. import native
 

@@ -85,18 +85,19 @@ def gather(model: FwModel, bd: dict) -> list:
     return leaves
 
 
-def forward(model: FwModel, bd: dict, leaves: list):
+def forward(model: FwModel, bd: dict, leaves: list, ffm_rows=None):
     """``(x, p, dlogit, residuals)``: the vector the tower (or the terminal
     sum) takes, ``x [B, D]``, with its graph to the leaves; the
     probabilities; the reference's general_gradient — ``(p −
     label)·importance`` inside the ±50 clamp, 0 outside and for NaN
     (src/block_loss_functions.rs:122-141); and the tower's residuals for
     :func:`tower_backward` (None without a tower). The label may be u8 and
-    the importance left out when all ones."""
+    the importance left out when all ones. ``ffm_rows``: the FFM slabs'
+    table, ids and spec when they are not ``ffm_w`` (FwModel.ffm_outputs)."""
     with torch.enable_grad():
         parts = [model.lr_outputs(leaves[0], bd)]
         if model.has_ffm:
-            parts.append(model.ffm_outputs(bd, leaves[1]))
+            parts.append(model.ffm_outputs(bd, leaves[1], ffm_rows))
         x = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
     if model.has_nn:
         lg, residuals = tower_forward(model, x.detach())

@@ -1,8 +1,10 @@
 """Device selection and numeric settings.
 
-The port runs on one CUDA card. The CPU is used only when a caller asks for
-it explicitly (``device="cpu"`` in the tests, ``--fwt_platform cpu`` on the
-command line): nothing falls back to the CPU because a card is missing.
+Each process of the port runs on one CUDA card (a run of several
+processes, parallel/distributed.py, gives each rank its own). The CPU is
+used only when a caller asks for it explicitly (``device="cpu"`` in the
+tests, ``--fwt_platform cpu`` on the command line): nothing falls back to
+the CPU because a card is missing.
 """
 
 from __future__ import annotations
@@ -25,26 +27,50 @@ def set_full_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None``, ``"cuda"``, ``"cuda:0"`` or ``"gpu"`` → ``cuda:0`` (raises
-    :class:`NoDeviceError` when there is none); ``"cpu"`` → the CPU. The
-    port runs on one card, the first: its kernels launch on the current
-    device, so any other card index is refused."""
+# the card a process group gave this process (resolve_device's ``rank``);
+# None until one asks, and then the only index accepted besides "cuda"
+_local_index: int | None = None
+
+
+def resolve_device(device: str | torch.device | None = None,
+                   rank: int | None = None) -> torch.device:
+    """``None``, ``"cuda"`` or ``"gpu"`` → this process's card (raises
+    :class:`NoDeviceError` when there is none); ``"cpu"`` → the CPU.
+
+    A process runs on one card, ``cuda:0`` unless a process group asks for
+    another: ``rank`` (a rank of parallel/distributed.py, one process per
+    card) takes the card ``rank % torch.cuda.device_count()`` and makes it
+    the current device before anything is allocated there, since the
+    kernels launch on the current device and stream. After that
+    ``"cuda:<that index>"`` is accepted as well; any other index is
+    refused."""
+    global _local_index
     if isinstance(device, torch.device):
         name = str(device)
     else:
         name = device or "cuda"
     if name == "cpu":
         return torch.device("cpu")
-    if name not in ("cuda", "cuda:0", "gpu"):
+    index = _local_index if _local_index is not None else 0
+    if rank is not None:
+        if not torch.cuda.is_available():
+            raise NoDeviceError(
+                "no CUDA device is available for the process group's rank "
+                f"{rank}; pass --fwt_platform cpu to run on the CPU instead")
+        index = rank % torch.cuda.device_count()
+    if name not in ("cuda", "gpu", f"cuda:{index}"):
         raise ValueError(f"unknown device {device!r}: expected 'cuda', "
-                         "'cuda:0' or 'cpu' (the port runs on one card)")
+                         f"'cuda:{index}' or 'cpu' (a process runs on one "
+                         "card)")
     if not torch.cuda.is_available():
         raise NoDeviceError(
             "no CUDA device is available (torch.cuda.is_available() is "
             "False); pass --fwt_platform cpu to run on the CPU instead")
+    if rank is not None:
+        torch.cuda.set_device(index)
+        _local_index = index
     set_full_precision()
-    return torch.device("cuda:0")
+    return torch.device(f"cuda:{index}")
 
 
 def nvidia_smi_line() -> str:

@@ -82,19 +82,27 @@ def test_second_card_is_refused(tmp_path):
 
 
 def test_training_is_not_yet_ported(tmp_path):
-    """Convert and sharded training are not ported yet: the CLI says so,
-    with a tower and with the record cache too (both of which train
-    unsharded: tests/test_torch_tower_cli.py, test_torch_cache.py)."""
+    """The modes this test once found refused are ported. A mesh still
+    needs its ranks, one process per device (parallel/distributed.py): in
+    a process of its own, with a tower or the record cache, the run exits
+    1 naming the flags and writes nothing (a mesh's runs:
+    tests/test_torch_mesh_cli.py). Convert writes the inference file
+    (tests/test_torch_convert.py)."""
     path, data = model_and_data(tmp_path)
-    for extra in (["--nn_layers", "1", "--nn", "0:width:4", "--fwt_table_axis", "2"],
-                  ["-c", "--fwt_hosts", "2"],
-                  ["-i", str(path), "--convert_inference_regressor",
-                   str(tmp_path / "inf.fwt")]):
+    for extra, named in (
+            (["--nn_layers", "1", "--nn", "0:width:4", "--fwt_table_axis", "2"],
+             "--fwt_table_axis"),
+            (["-c", "--fwt_hosts", "2"], "--fwt_coordinator")):
         r = run_cli(["--data", str(data), "--keep", "A", "--fwt_platform",
-                     "cpu", *extra], tmp_path)
-        assert r.returncode != 0, extra
-        assert "not yet ported" in r.stderr, extra
-    assert not (tmp_path / "inf.fwt").exists()
+                     "cpu", "-p", str(tmp_path / "p.out"), *extra], tmp_path)
+        assert r.returncode == 1, extra
+        assert named in r.stderr, extra
+    assert not (tmp_path / "p.out").exists()
+    assert not (tmp_path / "d.vw.fwcache").exists()
+    r = run_cli(["-i", str(path), "--convert_inference_regressor",
+                 str(tmp_path / "inf.fwt"), "--fwt_platform", "cpu"], tmp_path)
+    assert r.returncode == 0, r.stderr
+    assert (tmp_path / "inf.fwt").exists()
 
 
 def test_native_engine_testonly_writes_the_final_regressor(tmp_path, caplog):

@@ -9,7 +9,9 @@ packed superbatches) writes predictions and a model file with optimizer
 state, its predictions equal to the ``--fwt_no_native`` path's; and a
 tower (``--nn``) trains twice with ``-c``, recording a raw record cache and
 reading it back, with equal predictions and a model file that keeps its
-tower."""
+tower; and the last modules ported: convert (quantized, served by the
+embedded engine), the weight patcher's C++ tool between two trained model
+files, and the sharded step on a gloo group of one rank."""
 
 import subprocess
 import sys
@@ -101,6 +103,44 @@ SCRIPT = textwrap.dedent("""
     assert int.from_bytes(raw[8:12], "little") == 0  # no zstandard: raw
     _, _, towered = load_model(tmp + "/n.fwt", device="cpu")
     assert towered.has_nn and float(towered.layers[0].w_acc.abs().sum()) > 0
+    for name in ("tools.weight_patcher", "parallel.distributed",
+                 "parallel.mesh", "parallel.sharded"):
+        assert "fwumious_wabbit_tpu_torch." + name in names, name
+    # convert, quantized, and the converted file on the embedded engine
+    assert main(["--convert_inference_regressor", tmp + "/q.fwt", "-i",
+                 tmp + "/t.fwt", "--weight_quantization",
+                 "--fwt_platform", "cpu"]) == 0
+    assert main(["-t", "-i", tmp + "/q.fwt", "--data", tmp + "/t.vw",
+                 "-p", tmp + "/q.out", "--fwt_serve_engine", "native"]) == 0
+    assert len(open(tmp + "/q.out").read().split()) == 8
+    # the weight patcher's C++ tool between two trained models
+    from fwumious_wabbit_tpu_torch.tools import weight_patcher
+    assert weight_patcher.native_tool() is not None
+    assert main(train + ["-f", tmp + "/t2.fwt", "--save_resume",
+                         "--fwt_batch_size", "4"]) == 0
+    weight_patcher.create_diff(tmp + "/t.fwt", tmp + "/t2.fwt", tmp + "/d")
+    weight_patcher.recreate(tmp + "/t.fwt", tmp + "/d", tmp + "/t2r.fwt")
+    assert open(tmp + "/t2r.fwt", "rb").read() == open(tmp + "/t2.fwt", "rb").read()
+    # a gloo group of one rank, a 1x1 mesh and the sharded step
+    import socket
+    from fwumious_wabbit_tpu_torch.ingest import (
+        Batcher, FeatureTranslator, VowpalParser)
+    from fwumious_wabbit_tpu_torch.parallel import distributed, sharded
+    from fwumious_wabbit_tpu_torch.parallel import mesh as pmesh
+    from fwumious_wabbit_tpu_torch.train.step import train_batch_dict
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0, "cpu")
+    tmi, tvw, tmodel = load_model(tmp + "/t.fwt", device="cpu")
+    pmesh.shard_model(tmodel, pmesh.Mesh(1, 1))
+    parser, ft = VowpalParser(tvw), FeatureTranslator(tmi)
+    batch = Batcher(8).make_batch(
+        [ft.translate(parser.parse_line(l)) for l in open(tmp + "/t.vw", "rb")])
+    p = sharded.make_sharded_train_step(tmodel, tmodel.mesh, "a2a")(
+        train_batch_dict(batch))
+    assert p.shape == (8,) and bool(((p > 0) & (p < 1)).all())
+    distributed.shutdown()
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("imported", len(names), "modules")
 """)

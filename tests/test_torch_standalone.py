@@ -299,6 +299,41 @@ def test_native_engine_fails_with_the_compiler_message(monkeypatch, tmp_path):
     assert not list((tmp_path / "build").glob("*.so"))
 
 
+def test_port_builds_its_own_weight_patcher(monkeypatch, tmp_path):
+    """The model-diff tool is built from the port's copy of
+    weight_patcher.cpp (the JAX package's source, byte for byte) into the
+    port's build directory; a build that fails raises with g++'s message
+    and leaves no executable."""
+    assert ((REPO / "fwumious_wabbit_tpu_torch/native/weight_patcher.cpp").read_bytes()
+            == (REPO / "fwumious_wabbit_tpu/native/weight_patcher.cpp").read_bytes())
+    exe = native.weight_patcher()
+    assert exe.parent == REPO / "fwumious_wabbit_tpu_torch" / "build" and exe.exists()
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "PATCHER_FLAGS", native.PATCHER_FLAGS + [
+        "-include", "no_such.h"])
+    with pytest.raises(RuntimeError, match="no_such.h"):
+        native.weight_patcher()
+    assert [p.name for p in (tmp_path / "build").iterdir()] == ["weight_patcher.lock"]
+
+
+@pytest.mark.parametrize("n_table", [2, 4, 8])
+def test_mesh_padding_matches_jax(n_table):
+    """parallel/mesh.padded_rows is the rule of the JAX package's
+    pad_params_for_mesh, at small and large tables."""
+    import jax
+    import jax.numpy as jnp
+
+    from fwumious_wabbit_tpu.parallel import mesh as jmesh
+    from fwumious_wabbit_tpu_torch.parallel import mesh as pmesh
+
+    mesh = jmesh.make_mesh(n_data=8 // n_table, n_table=n_table,
+                           devices=jax.devices()[:8])
+    for rows in (1, 5, 33, 2048, 4095, 2048 * n_table, 2048 * n_table + 1, 40000):
+        padded = jmesh.pad_params_for_mesh(
+            None, {"lr_w": jnp.zeros((rows, 128), jnp.float32)}, mesh)
+        assert pmesh.padded_rows(rows, n_table) == padded["lr_w"].shape[0], rows
+
+
 def test_pack_cache_layout_records_cross_packages():
     """A packed layout written by one package's pack cache reads back in
     the other's with the same signature, under the same file format."""

@@ -118,11 +118,13 @@ def test_final_regressor_needs_save_resume(tmp_path):
     ["-c", "--fwt_data_axis", "2"]], ids=["nn", "cache"])
 def test_unported_training_modes_are_refused(tmp_path, extra):
     """A tower and the record cache train (tests/test_torch_tower_cli.py,
-    test_torch_cache.py); asked for with sharding, which is not ported
-    yet, the run is refused and writes nothing."""
+    test_torch_cache.py); asked for with a mesh in a process of its own —
+    one process per device, so a mesh needs as many ranks
+    (tests/test_torch_mesh_cli.py) — the run is refused with exit 1 and
+    writes nothing."""
     data = data_file(tmp_path)
     assert main(MODEL_ARGV + ["--data", str(data), "--fwt_platform", "cpu",
-                              "-p", str(tmp_path / "p.out"), *extra]) == 2
+                              "-p", str(tmp_path / "p.out"), *extra]) == 1
     assert not (tmp_path / "p.out").exists()
     assert not (tmp_path / "d.vw.fwcache").exists()
 

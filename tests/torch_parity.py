@@ -11,6 +11,8 @@ import dataclasses
 import fcntl
 import importlib
 import os
+import random
+import socket
 import subprocess
 import tempfile
 import time
@@ -38,6 +40,21 @@ BASE_ARGV = ["--keep", "A", "--keep", "B", "--keep", "C", "--interactions", "AB"
              "-b", "12", "--adaptive", "-l", "0.1", "--data", "x"]
 FFM_ARGV = ["--ffm_k", "4", "--ffm_bit_precision", "12",
             "--ffm_field", "A", "--ffm_field", "BC"]
+
+
+def free_port() -> int:
+    """A TCP port for a process group's rank 0, free now and below Linux's
+    ephemeral range (32768-60999): a port the kernel hands out for port 0
+    can be taken, before rank 0 binds it, by any socket another test's
+    gloo ranks open meanwhile."""
+    while True:
+        port = random.randrange(20000, 32768)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
 
 
 def make_vw(tmp_path) -> VwNamespaceMap:
