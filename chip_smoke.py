@@ -20,7 +20,9 @@ Phases, each raising on failure (exit code 1, and no result line):
    the triangle and torch autograd of it — at KERNEL_SHAPES and BWD_SHAPES:
    F=2 k=8 over a table of the main path's full width, the others over
    2^16-float tables, one-row slabs and F=40 k=8's three-row slabs, both
-   padding forms, duplicate ids, 16-byte and 4-byte loads; tolerance
+   padding forms, duplicate ids, 16-byte and 4-byte loads, and the FFM
+   gate's F=2 k=10 N=2 B=256 over its own table's width (the shared-memory
+   path, 4-byte loads whatever the alignment); tolerance
    max|kernel−plain| ≤ 1e-5·(1+max|plain|) in f32 with TF32 off, padded
    positions of the gradient exactly 0, reruns bit-identical;
 5. the sparse AdaGrad update kernel against the plain version
@@ -133,11 +135,24 @@ Phases, each raising on failure (exit code 1, and no result line):
    call's bound (the bytes its inputs need at 3.35 TB/s);
 9. a layer breakdown of the serving path (with the device kernels per
    256-line batch) and of one full-width train step (with the kernels'
-   launches per step).
+   launches per step);
+10. the learning-quality gates of ``python -m fwumious_wabbit_tpu_torch.gates
+   short`` on the card (their data written by 7b's child process after
+   the 1M file): the FFM gate (LR + FFM k=10, SGD, B=256, 30,000 train
+   lines, convert, ``-t`` on test-hard.vw from both files; balanced
+   accuracy > 0.80, inference == full on every line) and gate 3 (the
+   Eat-Rate LR model at B=16,384, 200k/50k lines; test logloss in (0.5,
+   0.7491 + 0.02)); each again with ``--fwt_platform cpu``, the card's
+   predictions within 1e-5 per line of the CPU's and its model file's
+   tables within 1e-5·(1+max|cpu|), the FFM gate's inference file
+   byte-equal to the CPU's convert of the card's own model; the kernels'
+   launches on each gate run; and the update kernel against plain at one
+   gate-3 step's own LR inputs (K = 229,376), timed, with its bytes and
+   bound.
 
 Each main path (6, the two training paths of 7, each run of 7b, the two
-tower paths of 7c, the 1M run of 7d, both runs of 7e and the three sharded
-runs of 7g) runs with the
+tower paths of 7c, the 1M run of 7d, both runs of 7e, the three sharded
+runs of 7g and every CLI run of the gates in 10) runs with the
 kernels' launch counters set to 0 just before it and read just after: the
 FFM forward must have launched in serving, all three kernels in each
 training path. Each phase prints its seconds. The dataset's child process
@@ -147,7 +162,9 @@ per train step from the 10k --fwt_no_native run and per packed train
 step from the first 1M default run, both main paths; its launches on the
 10k default path; and its error, times, bytes and bound at the default
 path's step, ``default_path_step``; its launches per tower step and per
-sharded step of each 7g run; no single
+sharded step of each 7g run; its launches on the gates' runs and per
+gate training step, and the update's error, times, bytes and bound at
+the gate-3 step; no single
 PyTorch call computes any of the three, so library_ms is null), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. It needs
 one card and no network.
@@ -166,7 +183,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 20261016
-KERNEL_SHAPES = [(2, 8, 8, 256), (4, 4, 6, 8), (16, 8, 12, 16), (3, 2, 5, 4)]
+# the FFM gate's F, k, N, B (gates.py): F·F·k = 40 floats per example take
+# the kernels' shared-memory path, with 4-byte loads (k % 4 != 0)
+GATE_SHAPE = (2, 10, 2, 256)
+KERNEL_SHAPES = [(2, 8, 8, 256), (4, 4, 6, 8), (16, 8, 12, 16), (3, 2, 5, 4),
+                 GATE_SHAPE]
 REPLY_ATOL = 2e-6  # tests/test_serving.py:176
 # the FFM backward's shapes: the forward's, the training shape, and a model
 # whose contra tensor needs more than 48 KB of shared memory
@@ -352,11 +373,12 @@ def agrees(got, ref) -> tuple:
     return ok, err, bound
 
 
-def kernel_phase(device, ffm_size: int) -> dict:
+def kernel_phase(device, ffm_sizes: dict) -> dict:
     """The fused forward and backward against their plain versions (the
     gather, then the triangle and torch autograd of it) at every shape of
     BWD_SHAPES: real tables of both layouts (F=2 k=8 at the main path's
-    full-width FFM table, ffm_size floats; F=40 k=8 slabs of three rows),
+    full-width FFM table and F=2 k=10 at the FFM gate's, ``ffm_sizes[(F,
+    k)]`` floats; F=40 k=8 slabs of three rows),
     both padding forms, duplicate ids, 16-byte and 4-byte loads; padded
     positions of the gradient exactly 0; a rerun bit-identical."""
     import numpy as np
@@ -366,7 +388,7 @@ def kernel_phase(device, ffm_size: int) -> dict:
 
     worst = {"fwd": 0.0, "bwd": 0.0}
     for F, k, N, B in BWD_SHAPES:
-        logical = ffm_size if (F, k) == (2, 8) else 1 << 16
+        logical = ffm_sizes.get((F, k), 1 << 16)
         errs = {"fwd": 0.0, "bwd": 0.0}
         for padding in ("minus1", "val0"):
             for aligned in (True, False):
@@ -1112,9 +1134,11 @@ def valid_preds(a) -> bool:
 
 
 def model_tensors(model) -> dict:
-    """The four tables and, with a tower, every layer's and the readout's
-    w, b, w_acc and b_acc, by name."""
-    out = {k: getattr(model, k) for k in ("lr_w", "lr_acc", "ffm_w", "ffm_acc")}
+    """The tables (the four, or the two weights of an SGD model) and, with
+    a tower, every layer's and the readout's w, b, w_acc and b_acc, by
+    name."""
+    out = {k: getattr(model, k) for k in ("lr_w", "lr_acc", "ffm_w", "ffm_acc")
+           if k in model._buffers}  # an SGD model holds no accumulator
     if model.has_nn:
         for i, layer in enumerate([*model.layers, model.final]):
             where = "final" if i == len(model.layers) else f"nn[{i}]"
@@ -1234,15 +1258,20 @@ def million_run(path: Path, name: str, n_lines: int, extra=(), base=None) -> tup
 def start_dataset(directory: Path, n_lines: int):
     """Writes the ``n_lines`` Eat-Rate file (synthetic.ensure_dataset, seed
     1) in a child process, so that its generation (pure Python, ~12 s for
-    1M lines) runs beside the phases before 7b. Started after the 10k file
-    and its namespace map exist, which the child then leaves alone."""
+    1M lines) runs beside the phases before 7b; then the data of phase
+    10's gates (gates.prepare: the FFM gate's and gate 3's). Started after
+    the 10k file and its namespace map exist, which the child then leaves
+    alone. It prints the seconds of the 1M file, then of the gates' data."""
     import subprocess
 
     code = ("import sys, time\n"
             "t0 = time.perf_counter()\n"
-            "from fwumious_wabbit_tpu_torch import synthetic\n"
+            "from fwumious_wabbit_tpu_torch import gates, synthetic\n"
             f"synthetic.ensure_dataset({str(directory)!r}, {n_lines})\n"
-            "print(time.perf_counter() - t0)\n")
+            "t1 = time.perf_counter()\n"
+            "print(t1 - t0, flush=True)\n"
+            f"gates.prepare({SMOKE_GATES!r}, gates.WORK)\n"
+            "print(time.perf_counter() - t1)\n")
     child = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                              text=True)
@@ -1272,8 +1301,10 @@ def million_phase(directory: Path, n_lines: int = 1_000_000,
         out, err = dataset.communicate(timeout=600)
         check(dataset.returncode == 0, f"the dataset's child process exited "
                                        f"{dataset.returncode}: {err[-2000:]}")
+        big_s, gates_s = (float(x) for x in out.split())
         where = (f"in a child process beside the earlier phases, "
-                 f"{float(out.split()[-1]):.2f} s of its time; waited for it")
+                 f"{big_s:.2f} s of its time, then {gates_s:.2f} s for the "
+                 f"gates' data; waited for it")
     big = synthetic.ensure_dataset(directory, n_lines)
     gen_s = time.perf_counter() - t0
     print(f"dataset: {n_lines:,} Eat-Rate lines ({big.stat().st_size} bytes) "
@@ -1497,12 +1528,11 @@ def step_update_check(model, bd: dict, what: str) -> dict:
     leaves = st.gather(model, bd)
     x, _, dlogit, residuals = st.forward(model, bd, leaves)
     grads, _ = st.backward(model, x, leaves, dlogit, residuals)
-    calls = {
-        "lr": (model.opt_lr, model.lr_w, model.lr_acc,
-               st.lr_update_rows(model, bd, grads[0])),
-        "ffm": (model.opt_ffm, model.ffm_w, model.ffm_acc,
-                st.ffm_update_rows(model, bd, grads[1])),
-    }
+    calls = {"lr": (model.opt_lr, model.lr_w, model.lr_acc,
+                    st.lr_update_rows(model, bd, grads[0]))}
+    if model.has_ffm:
+        calls["ffm"] = (model.opt_ffm, model.ffm_w, model.ffm_acc,
+                        st.ffm_update_rows(model, bd, grads[1]))
     out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
     for name, (opt, w, acc, (rid, grows, pre_scaled)) in calls.items():
         check(pre_scaled and opt.kind == adagrad.OPT_ADAGRAD_LUT,
@@ -2080,6 +2110,169 @@ def sharded_phase(data: Path, device) -> dict:
     return out
 
 
+# -- phase 10: the learning-quality gates ---------------------------------------
+
+SMOKE_GATES = ("ffm", "er200k")  # gates.py "short"; "full" runs apart (README)
+GATE3_BATCH = 16384
+
+
+def gate_config(argv: list, data: Path):
+    """``(mi, vw)`` of a gate's flags over the namespace map beside
+    ``data``."""
+    from fwumious_wabbit_tpu_torch.config.cmdline import build_parser
+    from fwumious_wabbit_tpu_torch.config.model_instance import ModelInstance
+    from fwumious_wabbit_tpu_torch.config.vwmap import VwNamespaceMap
+
+    vw = VwNamespaceMap.from_dataset_dir(str(data))
+    return ModelInstance.from_cmdline(build_parser().parse_args(argv), vw), vw
+
+
+def gate_files(gate: str, platform: str) -> dict:
+    """The prediction files and the model file of a gate's run."""
+    from fwumious_wabbit_tpu_torch import gates
+
+    d = gates.WORK / platform / gate
+    if gate == "ffm":
+        return {"preds": [d / "training.txt", d / "hard_full.txt", d / "hard_inf.txt"],
+                "fwt": d / "full.fwt", "inference": d / "inference.fwt"}
+    return {"preds": [d / "er200k_test.out"], "fwt": d / "er200k.fwt"}
+
+
+def gate_vs_cpu(gate: str) -> dict:
+    """A gate's card run against its run with --fwt_platform cpu: every
+    prediction within TRAIN_ATOL, the model files' tables within
+    1e-5·(1+max|cpu|) (compare_runs); for the FFM gate, the card's
+    inference file byte-equal to the CPU's convert of the card's own full
+    model, and whether it equals the CPU run's inference file too (the two
+    runs' models differ in last bits: their sums run in other orders)."""
+    import numpy as np
+
+    from fwumious_wabbit_tpu_torch import gates
+    from fwumious_wabbit_tpu_torch.train.loop import main
+
+    card, cpu = gate_files(gate, "cuda"), gate_files(gate, "cpu")
+    got, want = ({"preds": np.concatenate([gates.read_preds(p) for p in f["preds"]]),
+                  "fwt": f["fwt"]} for f in (card, cpu))
+    out = compare_runs(f"gate {gate}, card vs CPU", got, want, TRAIN_ATOL)
+    if gate == "ffm":
+        again = card["inference"].with_name("inference_by_cpu.fwt")
+        rc = main(gates.FFM_ARGV + ["-i", str(card["fwt"]), "--fwt_platform", "cpu",
+                                    "--convert_inference_regressor", str(again)])
+        check(rc == 0, f"convert of the card's FFM gate model on the CPU exited {rc}")
+        raw = card["inference"].read_bytes()
+        check(raw == again.read_bytes(), "the FFM gate's inference file differs "
+              "from the CPU's convert of the same model")
+        out["inference_equals_cpu_run"] = raw == cpu["inference"].read_bytes()
+        print(f"gate ffm: the card's inference file ({len(raw)} bytes) is "
+              f"byte-equal to the CPU's convert of the card's model; to the CPU "
+              f"run's inference file: {out['inference_equals_cpu_run']}", flush=True)
+    return out
+
+
+def gate_launches(gate: str, res: dict) -> dict:
+    """The kernels' launches on a gate's card runs (each run's counts set
+    to 0 just before it): every kernel of the model on its training run,
+    the FFM forward on its -t runs."""
+    train = res["train"]["launches"]
+    needed = (("ffm_triangle", "ffm_triangle_bwd", "sparse_adagrad_update")
+              if gate == "ffm" else ("sparse_adagrad_update",))
+    for kernel in needed:
+        check(train[kernel] > 0, f"gate {gate}'s training never launched the "
+                                 f"{kernel} kernel")
+    tests = ("test_full", "test_inference") if gate == "ffm" else ("test",)
+    if gate == "ffm":
+        for t in tests:
+            check(res[t]["launches"]["ffm_triangle"] > 0,
+                  f"gate ffm's {t} run never launched the fused FFM forward")
+    return {"train": train, "per_train_step": res["launches_per_train_step"],
+            **{t: res[t]["launches"] for t in tests}}
+
+
+def gate3_step_check(device) -> dict:
+    """The sparse update kernel against apply_rows_plain at one gate-3
+    train step's own LR inputs, as the CLI's default path makes them: the
+    producer packs the gate's first 2·16,384 train lines (the C++ ingest,
+    host counts, bitpack and vocab on; one superbatch of K=2), the transfer
+    stage takes it to the card, unpack_row splits it; the Eat-Rate LR model
+    of gates.ER_ARGV trains the first step, and the second step's (rid,
+    grows) go to step_update_check (bounds, times, bytes and bound)."""
+    import torch
+
+    from fwumious_wabbit_tpu_torch import gates
+    from fwumious_wabbit_tpu_torch.config.cmdline import build_parser
+    from fwumious_wabbit_tpu_torch.models.model import FwModel
+    from fwumious_wabbit_tpu_torch.train import packed
+    from fwumious_wabbit_tpu_torch.train import step as st
+    from fwumious_wabbit_tpu_torch.train.producer import (
+        SuperbatchProducer, Transferrer, arrived)
+
+    K = 2
+    head = gates.data_path("er200k_train", gates.WORK).with_name("er200k_head.vw")
+    with open(gates.data_path("er200k_train", gates.WORK), "rb") as fh:
+        head.write_bytes(b"".join(fh.readline() for _ in range(K * GATE3_BATCH)))
+    mi, vw = gate_config(gates.ER_ARGV, head)
+    model = FwModel(mi)
+    model.load_params(model.init_params(device))
+
+    class Sink(list):
+        put = list.append
+
+    sink, state = Sink(), packed.VocabTransferState()
+    SuperbatchProducer(
+        build_parser().parse_args(gates.ER_ARGV + ["--data", str(head)]),
+        mi, vw, batch_size=GATE3_BATCH, K=K, can_pack=True,
+        count_keys={"lr": 0}, cut_at=None, holdout_after=None, out_queue=sink,
+        ctr={"producer_stall_s": 0.0},
+        xfer_stats={"starve_s": 0.0, "xfer_s": 0.0, "put_s": 0.0, "bytes": 0},
+        vocab_state=state).run()
+    state.close()
+    check(isinstance(sink[-1], type(None)), f"the producer failed: {sink[-1]!r}")
+    # the steps in stream order; a layout change (the vocabulary grows)
+    # closes a superbatch early, and a snapshot holds for what follows it
+    tr, vocab, steps = Transferrer(device), None, []
+    for item in sink[:-1]:
+        (dev,), ev = tr.stage([item[1]])
+        if item[0] == "v":
+            vocab = arrived(dev, ev)
+            continue
+        lay = item[2]
+        rows = packed.unpack_row(arrived(dev, ev), lay, vocab,
+                                 packed._Plan(lay, device))
+        steps += [{key: v[i] for key, v in rows.items()}
+                  for i in range(item[1].shape[0])]
+    check(len(steps) == K, f"the producer made {len(steps)} steps of "
+                           f"{K * GATE3_BATCH} lines")
+    st.make_train_step(model)(steps[0])
+    out = step_update_check(model, steps[1],
+                            f"a gate-3 train step (B={GATE3_BATCH})")
+    del model, steps
+    torch.cuda.empty_cache()
+    return out
+
+
+def gates_phase(device) -> dict:
+    """Phase 10: gates.py's ``short`` gates on the card, each a main path
+    (gates.cli sets the launch counts to 0 before each run), within its
+    bound; each again with --fwt_platform cpu, the card held to it
+    (:func:`gate_vs_cpu`); then the update kernel at a gate-3 step's own
+    inputs (:func:`gate3_step_check`)."""
+    from fwumious_wabbit_tpu_torch import gates
+
+    out = {}
+    for gate in SMOKE_GATES:
+        card = gates.run(gate)
+        print(gates.summary(card), flush=True)
+        check(card["passed"], f"gate {gate} on the card missed its bound")
+        cpu = gates.run(gate, cpu=True)
+        print(gates.summary(cpu), flush=True)
+        out[gate] = {"card": card, "cpu": cpu, "vs_cpu": gate_vs_cpu(gate),
+                     "launches": gate_launches(gate, card)}
+        print(f"kernel launches on gate {gate}'s card runs: "
+              f"{json.dumps(out[gate]['launches'])}", flush=True)
+    out["step"] = gate3_step_check(device)
+    return out
+
+
 def step_bound(step_upd: dict) -> dict:
     """The sparse update's bound per train step: its LR and FFM calls."""
     lr, fm = step_upd["lr_bound"], step_upd["ffm_bound"]
@@ -2125,7 +2318,7 @@ def main() -> int:
     block_jax_package()
     sys.path.insert(0, str(ROOT))
 
-    from fwumious_wabbit_tpu_torch import native, synthetic
+    from fwumious_wabbit_tpu_torch import gates, native, synthetic
     from fwumious_wabbit_tpu_torch.ops import ffm
     from fwumious_wabbit_tpu_torch.ops.kernels import build
     from fwumious_wabbit_tpu_torch.persistence.model_file import load_model
@@ -2158,8 +2351,10 @@ def main() -> int:
     data = synthetic.ensure_dataset(ROOT / ".bench_cache" / "chip_smoke", 10_000)
     dataset = start_dataset(data.parent, 1_000_000)
     mi, vw = synthetic.serving_config(data)
+    gate_mi, _ = gate_config(gates.FFM_ARGV, data)
     with phase("3-4 ffm kernels"):
-        kern = kernel_phase(device, mi.ffm_weights_len)
+        kern = kernel_phase(device, {(2, 8): mi.ffm_weights_len,
+                                     (2, 10): gate_mi.ffm_weights_len})
     with phase("5 sparse update kernel"):
         upd = update_phase(device)
         step_upd = step_update_phase(data, device)
@@ -2204,6 +2399,8 @@ def main() -> int:
                               nat["fwt"], data)
     with phase("7g sharded step"):
         shd = sharded_phase(data, device)
+    with phase("10 gates"):
+        gts = gates_phase(device)
     tower_kernels = (trate["profile"]["device_kernels_per_step"]
                      - prof["device_kernels_per_step"])
     print(f"timing: packed tower train steps at full width (K=8, B=1024), per "
@@ -2310,6 +2507,23 @@ def main() -> int:
           f"{patch['recreate_s']:.2f} s, diff {patch['diff_bytes']} bytes",
           flush=True)
     print(f"  on {card}", flush=True)
+    for gate in SMOKE_GATES:
+        for where in ("card", "cpu"):
+            r = gts[gate][where]
+            tests = ([r["test_full"], r["test_inference"]] if gate == "ffm"
+                     else [r["test"]])
+            print(f"timing: gate {gate} on the {where}: train "
+                  f"{r['train']['rows']:,} lines at {r['train']['ex_s']:.0f} ex/s "
+                  f"(CLI Elapsed line), -t {tests[0]['rows']:,} lines at "
+                  f"{tests[0]['ex_s']:.0f} lines/s; the gate {r['seconds']:.1f} s",
+                  flush=True)
+            print(f"  on {card if where == 'card' else 'the host CPU'}", flush=True)
+    g3 = gts["step"]
+    print(update_timing_line(
+        f"at a gate-3 train step's LR shape, B={GATE3_BATCH} K={g3['lr_K']}",
+        g3["lr_ms"], g3["lr_plain_ms"], g3["lr_device"])
+        + f"; bound {json.dumps(g3['lr_bound'])}", flush=True)
+    print(f"  on {card}", flush=True)
     PHASE_SECONDS["8 ffm timing"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     layers = layer_breakdown(paths[0], data.read_bytes().splitlines(True), device)
@@ -2351,7 +2565,7 @@ def main() -> int:
                     k: v["launches"][kernel] for k, v in shd.items()},
                 "launches_per_sharded_step": {
                     k: v["launches_per_step"][kernel] for k, v in shd.items()}}
-    print(json.dumps({"kernels": [
+    rows = [
         kernel_row("ffm_triangle", "ffm_triangle.cu",
                    "fwumious_wabbit_tpu/ops/pallas/ffm.py:131 (with the slab "
                    "gather of ops/tables.py)", launches,
@@ -2382,7 +2596,21 @@ def main() -> int:
                    upd_dev, 0, per_step["sparse_adagrad_update"],
                    packed_step["sparse_adagrad_update"],
                    nat_launches["sparse_adagrad_update"], nat_upd,
-                   tower("sparse_adagrad_update"))]}))
+                   tower("sparse_adagrad_update"))]
+    for row in rows:  # launches on phase 10's gate paths
+        row["launches_on_the_gate_paths"] = {
+            gate: {run: v[row["name"]] for run, v in gts[gate]["launches"].items()
+                   if run != "per_train_step"} for gate in SMOKE_GATES}
+        row["launches_per_gate_train_step"] = {
+            gate: gts[gate]["launches"]["per_train_step"][row["name"]]
+            for gate in SMOKE_GATES}
+    rows[2]["gate3_step"] = {
+        "K": g3["lr_K"], "max_abs_err": g3["max_abs_err"], "ms": g3["lr_ms"],
+        "plain_ms": g3["lr_plain_ms"], "device_us": g3["lr_device"]["device_us"],
+        "bytes": g3["lr_bound"]["bytes"], "bound_ms": g3["lr_bound"]["bound_ms"],
+        "bound_by": g3["lr_bound"]["bound_by"]}
+    rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], g3["max_abs_err"])
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

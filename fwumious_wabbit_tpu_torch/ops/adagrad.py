@@ -282,7 +282,8 @@ def apply_rows_plain(w: torch.Tensor, acc: torch.Tensor | None,
     if not bool(keep.all()):
         rid, grows = rid[keep], grows[keep]
     if kind == OPT_SGD:
-        w.index_add_(0, rid, grows, alpha=-learning_rate)
+        # the product rounded before the add, as JAX's w.at[rid].add(−lr·g)
+        w.index_add_(0, rid, grows * -learning_rate)
         return w, acc
     acc.index_add_(0, rid, grows * grows)
     acc_rows = acc[rid]

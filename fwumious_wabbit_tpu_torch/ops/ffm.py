@@ -54,6 +54,39 @@ def triangle_indices(F: int):
     return ti, tj, scale
 
 
+def _pairwise(terms: list) -> torch.Tensor:
+    """``(t0 + t1) + (t2 + t3) …``, level by level, an odd last term
+    carried up."""
+    while len(terms) > 1:
+        pairs = [terms[i] + terms[i + 1] for i in range(0, len(terms) - 1, 2)]
+        terms = pairs + terms[len(terms) - len(terms) % 2:]
+    return terms[0]
+
+
+def field_sums(onehot: torch.Tensor, weighted: torch.Tensor) -> torch.Tensor:
+    """``C[b,t,f,:] = Σ_n onehot[b,n,f] · weighted[b,n,t,:]``, added in the
+    order of the JAX model's ``einsum("bnf,bntk->btfk")`` on XLA's CPU
+    backend: four running sums over the first 4⌊N/4⌋ features (feature n
+    into sum n mod 4), joined pairwise, plus the pairwise sum of the rest.
+    The products are exact (a one-hot times a weighted slab), so only the
+    order of the adds can move a last bit of C, and with it of every
+    gradient autograd takes through C (tests/test_torch_ffm.py holds the
+    order against ``jnp.einsum`` at F = 2, 3 and 4 for N up to 48;
+    ``torch.einsum`` adds in feature order)."""
+    terms = onehot[:, :, None, :, None] * weighted[:, :, :, None, :]  # [B,N,T,F,k]
+    N = terms.shape[1]
+    M = N - N % 4
+    parts = []
+    if M:
+        acc = terms[:, 0:4]
+        for i in range(4, M, 4):
+            acc = acc + terms[:, i:i + 4]
+        parts.append(_pairwise(list(acc.unbind(1))))
+    if N > M:
+        parts.append(_pairwise(list(terms[:, M:].unbind(1))))
+    return _pairwise(parts)
+
+
 def ffm_triangle_reference(emb: torch.Tensor, vals: torch.Tensor,
                            fields: torch.Tensor, F: int, k: int) -> torch.Tensor:
     """Plain PyTorch version: ``[B, N, F·k]`` slabs → ``[B, F(F+1)/2]``.
@@ -63,7 +96,7 @@ def ffm_triangle_reference(emb: torch.Tensor, vals: torch.Tensor,
     onehot = (fields.long().unsqueeze(-1)
               == torch.arange(F, device=emb.device)).to(emb.dtype)  # [B,N,F]
     weighted = e * vals[:, :, None, None]
-    C = torch.einsum("bnf,bntk->btfk", onehot, weighted)
+    C = field_sums(onehot, weighted)
     inter = 0.5 * torch.einsum("btfk,bftk->btf", C, C)
     own = torch.einsum("bntk,bnt->bnk", e, onehot)  # w_n→field(n)
     self_term = 0.5 * (own * own).sum(-1) * vals * vals  # [B,N]

@@ -1,6 +1,7 @@
 """A synthetic CTR dataset and the LR+FFM k=8 configuration at full width,
 for smoke tests and benchmarks of the port: served (weights only) or
-trained (with the flags' AdaGrad state).
+trained (with the flags' AdaGrad state); and the FFM gate's
+herbivore/carnivore dataset (:func:`generate_ffm_dataset`).
 
 The dataset has the schema and distribution of the reference's benchmark
 generator (reference: benchmark/generate.py), and is byte for byte what
@@ -66,14 +67,65 @@ def generate_dataset(path: Path, rows: int, feature_variety: int = 1000,
     os.replace(tmp, path)
 
 
-def ensure_dataset(directory: Path, rows: int) -> Path:
-    """``directory/train_<rows>.vw`` and its namespace map, written once."""
+def _render_ffm(kind_a: int, name_a: int, kind_b: int, name_b: int) -> str:
+    label = 1 if (kind_a, kind_b) in ((0, 0), (1, 1)) else -1
+    animal = ("Herbivore" if kind_a == 0 else "Carnivore") + f"-{name_a}"
+    food = ("Plant" if kind_b == 0 else "Meat") + f"-{name_b}"
+    return f"{label} |A {animal} |B {food}\n"
+
+
+def generate_ffm_dataset(out: Path, num_animals: int = 300,
+                         num_foods: int = 200, num_train_examples: int = 30000,
+                         num_test_examples: int = 10000,
+                         block_beyond: int = 3) -> None:
+    """The FFM gate's data, byte for byte what examples/ffm/generate.py
+    writes for the same arguments (``random.Random(1)``): ``train.vw``,
+    ``test-easy.vw`` and ``test-hard.vw`` under ``out``, with the
+    two-namespace map. An animal eats a food of its kind (label 1, else
+    −1); a train or easy-test pair anchors its animal or its food in the
+    first ``block_beyond`` + 1 ids, a hard-test pair neither, so only the
+    FFM's latent factors can score it."""
+    import random
+
+    rng = random.Random(1)
+    out = Path(out)
+    out.mkdir(exist_ok=True)
+    (out / NAMESPACE_MAP).write_text("A,animal\nB,food\n")
+
+    def common_pair():
+        ka, kb = rng.randint(0, 1), rng.randint(0, 1)
+        if rng.randint(0, 1):
+            return ka, rng.randint(0, num_animals), kb, rng.randint(0, block_beyond)
+        return ka, rng.randint(0, block_beyond), kb, rng.randint(0, num_foods)
+
+    with open(out / "train.vw", "w") as f:
+        for _ in range(num_train_examples):
+            f.write(_render_ffm(*common_pair()))
+    with open(out / "test-easy.vw", "w") as f:
+        for _ in range(num_test_examples):
+            f.write(_render_ffm(*common_pair()))
+    with open(out / "test-hard.vw", "w") as f:
+        for _ in range(num_test_examples):
+            f.write(_render_ffm(
+                rng.randint(0, 1), rng.randint(block_beyond + 1, num_animals),
+                rng.randint(0, 1), rng.randint(block_beyond + 1, num_foods)))
+
+
+def write_namespace_map(directory: Path) -> None:
+    """The Eat-Rate dataset's namespace map in ``directory``, unless it is
+    there."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     csv = directory / NAMESPACE_MAP
     if not csv.exists():
         csv.write_text("A,animal\nB,food\n" + "".join(
             chr(ord("C") + x) + ",somefeature\n" for x in range(10)))
+
+
+def ensure_dataset(directory: Path, rows: int) -> Path:
+    """``directory/train_<rows>.vw`` and its namespace map, written once."""
+    directory = Path(directory)
+    write_namespace_map(directory)
     data = directory / f"train_{rows}.vw"
     if not data.exists():
         generate_dataset(data, rows)

@@ -158,3 +158,71 @@ def test_slab_mask_is_the_gather_rule(F, k):
     got = ffm.tables.gather(torch.from_numpy(table), torch.from_numpy(ids), spec)
     np.testing.assert_array_equal(got.numpy().reshape(-1, F * k), want)
     assert (spec.rows_per_slab > 1) == (F * k > 128)
+
+
+@pytest.mark.parametrize("F,k", [(2, 10), (3, 4), (4, 4)])
+def test_field_sums_add_in_xla_order(F, k):
+    """``C = einsum("bnf,bntk->btfk", onehot, weighted)`` of the plain
+    triangle, bit for bit against the JAX model's einsum on XLA's CPU
+    backend at every N up to 19 and at 32 and 48, every feature in one field
+    (the longest sums). ``torch.einsum`` adds in feature order and differs
+    from N = 4 on; a last-bit difference in C reached an AdaGrad LUT weight
+    through a bucket edge (ROADMAP §3)."""
+    rng = np.random.default_rng(F * 100 + k)
+    xla = jax.jit(lambda a, b: jnp.einsum("bnf,bntk->btfk", a, b,
+                                          precision="highest"))
+    for N in [*range(1, 20), 32, 48]:
+        onehot = np.zeros((16, N, F), np.float32)
+        onehot[:, :, 1] = 1.0
+        weighted = rng.normal(size=(16, N, F, k)).astype(np.float32)
+        got = ffm.field_sums(torch.from_numpy(onehot), torch.from_numpy(weighted))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(xla(onehot, weighted)),
+                                      err_msg=str(N))
+    assert not torch.equal(
+        got, torch.einsum("bnf,bntk->btfk", torch.from_numpy(onehot),
+                          torch.from_numpy(weighted)))
+
+
+@pytest.mark.parametrize("F,k,N,B", [(4, 4, 6, 8), (2, 8, 8, 256), (2, 10, 2, 256)])
+def test_gradient_is_bit_equal_to_jax_vjp(F, k, N, B):
+    """``d emb`` of the plain version equals ``jax.vjp``'s bit for bit
+    where the sums of C follow XLA's order (test_field_sums_add_in_xla_order),
+    the FFM gate's F=2, k=10, N=2 among them."""
+    table, ids, vals, fields, spec = ffm_case(F, k, N, B, "minus1")
+    g = np.random.default_rng(B + N).normal(
+        size=(B, F * (F + 1) // 2)).astype(np.float32)
+    np.testing.assert_array_equal(
+        port_grad(table, ids, vals, fields, spec, g, F, k),
+        jax_grad(table, ids, vals, fields, spec, g, F, k))
+
+
+def test_xla_sums_k10_in_another_order():
+    """What remains of the port's float order against XLA's (ROADMAP §3),
+    pinned: at the FFM gate's F=2, k=10 (N=2, B=256) the plain triangle's
+    ``½Σ_k C[t,f,k]·C[f,t,k]`` adds its ten products in another order than
+    the JAX model's ``einsum("btfk,bftk->btf")`` on XLA's CPU backend, whose
+    dot contracts k with fused multiply-adds in an order a plain PyTorch
+    version does not follow. The first differing element is [0, 2]: XLA
+    0.22124211 (bits 1046646091), the port 0.2212421 (bits 1046646090), one
+    ulp; 196 of 768 differ, by at most 1.2e-7 (the diagonal's cancellation).
+    At k=8 the two agree bit for bit. Through the forward's logit, an SGD
+    run of the FFM gate drifts from the JAX CLI's in last bits
+    (tests/test_torch_gates.py holds it within 2e-6)."""
+    table, ids, vals, fields, spec = ffm_case(2, 10, 2, 256, "minus1")
+    emb = jax_slabs(table, ids, spec)
+    model = jax_model(2, 10)
+    batch = {"ffm_vals": jnp.asarray(vals), "ffm_fields": jnp.asarray(fields)}
+    xla = np.asarray(model.triangle(model.ffm_outputs(emb, batch)))
+    got = ffm.ffm_fused(*port_inputs(table, ids, vals, fields), 2, 10, spec).numpy()
+    differ = np.argwhere(got != xla)
+    assert len(differ) == 196 and tuple(differ[0]) == (0, 2)
+    assert xla[0, 2].view(np.uint32) == 1046646091
+    assert got[0, 2].view(np.uint32) == 1046646090
+    assert np.abs(got - xla).max() <= 1.2e-7
+    table, ids, vals, fields, spec = ffm_case(2, 8, 4, 256, "minus1")
+    vals[:] = 1.0
+    batch = {"ffm_vals": jnp.asarray(vals), "ffm_fields": jnp.asarray(fields)}
+    np.testing.assert_array_equal(
+        ffm.ffm_fused(*port_inputs(table, ids, vals, fields), 2, 8, spec).numpy(),
+        np.asarray(jax_model(2, 8).triangle(jax_model(2, 8).ffm_outputs(
+            jax_slabs(table, ids, spec), batch))))

@@ -151,3 +151,22 @@ def test_each_shape_takes_its_path(cuda):
     lanes = build.load("ffm_triangle").fwt_ffm_fused_warp_lanes
     assert [lanes(F, k, 1) for F, k, _, _ in SHAPES] == [16, 0, 32, 8, 0]
     assert [lanes(F, k, 0) for F, k, _, _ in SHAPES] == [0, 0, 32, 32, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False], ids=["vec16", "vec4"])
+def test_ffm_gate_shape(cuda, aligned):
+    """The FFM gate's F=2, k=10 (N=2, B=256): F·F·k = 40 floats per example
+    take the shared-memory path, with 4-byte loads however the table is
+    aligned (k % 4 ≠ 0); forward and backward against plain."""
+    F, k, N, B = 2, 10, 2, 256
+    lanes = build.load("ffm_triangle").fwt_ffm_fused_warp_lanes
+    assert lanes(F, k, 1) == lanes(F, k, 0) == 0
+    args, spec = inputs(F, k, N, B, cuda, aligned)
+    got = ffm.ffm_fused(*args, F, k, spec)
+    assert within(got, ffm.ffm_fused_reference(*args, F, k, spec))
+    g = upstream(F, B, cuda)
+    got = ffm.ffm_fused_bwd(g, *args, F, k, spec)
+    assert within(got, ffm.ffm_fused_bwd_reference(g, *args, F, k, spec))
+    pad = torch.from_numpy(padded(args[2].cpu().numpy(), args[3].cpu().numpy(), F))
+    assert torch.count_nonzero(got[pad.to(cuda)]) == 0

@@ -11,7 +11,8 @@ tower (``--nn``) trains twice with ``-c``, recording a raw record cache and
 reading it back, with equal predictions and a model file that keeps its
 tower; and the last modules ported: convert (quantized, served by the
 embedded engine), the weight patcher's C++ tool between two trained model
-files, and the sharded step on a gloo group of one rank."""
+files, the sharded step on a gloo group of one rank, and the FFM gate
+(gates.py) over a small dataset."""
 
 import subprocess
 import sys
@@ -141,6 +142,15 @@ SCRIPT = textwrap.dedent("""
         train_batch_dict(batch))
     assert p.shape == (8,) and bool(((p > 0) & (p < 1)).all())
     distributed.shutdown()
+    # the FFM gate (gates.py) over a small dataset of its own generator
+    from pathlib import Path
+    from fwumious_wabbit_tpu_torch import gates, synthetic
+    assert "fwumious_wabbit_tpu_torch.gates" in names
+    os.makedirs(tmp + "/gates/data")
+    synthetic.generate_ffm_dataset(Path(tmp) / "gates/data/ffm", 300, 200, 600, 200)
+    res = gates.run("ffm", cpu=True, work=Path(tmp) / "gates")
+    assert res["lines"] == 200 and res["inference_equals_full"] == 200
+    assert res["train"]["rows"] == 600 and res["device"] == "cpu"
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("imported", len(names), "modules")
 """)
