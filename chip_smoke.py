@@ -148,7 +148,19 @@ Phases, each raising on failure (exit code 1, and no result line):
    byte-equal to the CPU's convert of the card's own model; the kernels'
    launches on each gate run; and the update kernel against plain at one
    gate-3 step's own LR inputs (K = 229,376), timed, with its bytes and
-   bound.
+   bound;
+11. the one-command mesh (parallel/launch.py): a mesh that does not cover
+   the host's cards (``--fwt_table_axis 4`` on fewer than four cards, else
+   one more than their count) exits 1, names the flags and the card count,
+   and writes nothing; on a host of four or more cards, ``python -m
+   fwumious_wabbit_tpu_torch.multicard``'s runs a (``--fwt_data_axis 4``,
+   psum, and its explicit four-rank form), b (``--fwt_table_axis 4``, a2a)
+   over 7b's 1M-line file and f (Eat-Rate gate 4 on four cards, 10M/10M at
+   B=32,768) through the one-command CLI, each against the same CLI on one
+   card within multicard's bounds, each rank's launches read from its
+   counters (a rank process starts with every count at 0) and every kernel
+   of its path launched on every rank; on fewer cards one line says that
+   the four-card phase needs four.
 
 Each main path (6, the two training paths of 7, each run of 7b, the two
 tower paths of 7c, the 1M run of 7d, both runs of 7e, the three sharded
@@ -164,7 +176,8 @@ step from the first 1M default run, both main paths; its launches on the
 path's step, ``default_path_step``; its launches per tower step and per
 sharded step of each 7g run; its launches on the gates' runs and per
 gate training step, and the update's error, times, bytes and bound at
-the gate-3 step; no single
+the gate-3 step; on four cards, its launches per four-card step of
+phase 11's runs; no single
 PyTorch call computes any of the three, so library_ms is null), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. It needs
 one card and no network.
@@ -2028,7 +2041,7 @@ def sharded_phase(data: Path, device) -> dict:
     configuration, and a2a once with the tower; each a main path (the
     launch counts set to 0 just before it), held against
     ``train/step.make_train_step`` on the card over the same batches (the
-    host counts left out of both): predictions within 1e-6, every table and
+    host counts read by both, as in the CLI): predictions within 1e-6, every table and
     tower tensor within 1e-5·(1+max|·|), with whether they are
     bit-identical, and each step's wall time beside the plain step's."""
     import numpy as np
@@ -2056,7 +2069,7 @@ def sharded_phase(data: Path, device) -> dict:
     for cfg, config, exchanges in (("lr_ffm", None, ("psum", "a2a")),
                                    ("tower", synthetic.tower_training_config, ("a2a",))):
         ref, hb, _ = train_batches(data, device, SHARDED_STEPS, config)
-        batches = [st.to_device(b, sharded.KEYS, device) for b in hb]
+        batches = [st.to_device(b, st.TRAIN_KEYS, device) for b in hb]
         step = st.make_train_step(ref)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2107,6 +2120,69 @@ def sharded_phase(data: Path, device) -> dict:
         del ref, step
         torch.cuda.empty_cache()
     distributed.shutdown()
+    return out
+
+
+# -- phase 11: the one-command mesh ---------------------------------------------
+
+FOUR_CARD_RUNS = ("a", "b", "f")
+
+
+def refusal_check(data: Path, count: int) -> dict:
+    """A mesh that does not cover the host's ``count`` cards: the CLI exits
+    1, names the flags and the count, and writes nothing."""
+    from fwumious_wabbit_tpu_torch import synthetic
+    from fwumious_wabbit_tpu_torch.train.loop import main
+
+    n_table = 4 if count < 4 else count + 1
+    out = data.with_name("chip_smoke_refused.out")
+    fwt = data.with_name("chip_smoke_refused.fwt")
+    flags = ["--fwt_table_axis", str(n_table)]
+    with ElapsedLog() as el:
+        rc = main(synthetic.serving_argv() + ["--data", str(data), *flags,
+                                              "-p", str(out), "-f", str(fwt),
+                                              "--save_resume"])
+    said = "\n".join(el.records)
+    check(rc == 1, f"{' '.join(flags)} on {count} card(s) exited {rc}, not 1")
+    check(" ".join(flags) in said and f"the {count} device(s)" in said,
+          f"the refusal does not name the flags and the count: {said!r}")
+    check(not out.exists() and not fwt.exists(), "the refused run wrote a file")
+    print(f"launcher: {' '.join(flags)} on {count} card(s) refused, exit 1: "
+          f"{said.splitlines()[-1]}", flush=True)
+    return {"flags": flags, "cards": count, "rc": rc}
+
+
+def four_card_phase(big: Path) -> dict | None:
+    """Phase 11's four-card runs (multicard.run_all), or None on fewer
+    cards, said in one line."""
+    import torch
+
+    from fwumious_wabbit_tpu_torch import multicard
+
+    count = torch.cuda.device_count()
+    if count < multicard.CARDS:
+        print(f"four-card phase: not run: it needs {multicard.CARDS} cards and "
+              f"this host has {count}", flush=True)
+        return None
+    torch.cuda.empty_cache()
+    res = multicard.run_all(list(FOUR_CARD_RUNS), train_data=big)
+    for name, run in res["runs"].items():
+        for mesh in run["meshes"]:
+            print(multicard.summary(name, mesh, res["device"]), flush=True)
+    return res
+
+
+def four_card_launches(res: dict, kernel: str) -> dict:
+    """A kernel's launches per four-card step on rank 0 of each run, and
+    on every rank in total."""
+    out = {}
+    for name, run in res["runs"].items():
+        for mesh in run["meshes"]:
+            key = f"{name} {' '.join(mesh['flags'])}"
+            ranks = mesh["numbers"]["ranks"]
+            out[key] = {"per_step_rank0": ranks[0]["launches_per_step"][kernel],
+                        "per_step_each_rank": [r["launches_per_step"][kernel]
+                                               for r in ranks]}
     return out
 
 
@@ -2401,6 +2477,9 @@ def main() -> int:
         shd = sharded_phase(data, device)
     with phase("10 gates"):
         gts = gates_phase(device)
+    with phase("11 one-command mesh"):
+        refused = refusal_check(data, torch.cuda.device_count())
+        four = four_card_phase(big["path"])
     tower_kernels = (trate["profile"]["device_kernels_per_step"]
                      - prof["device_kernels_per_step"])
     print(f"timing: packed tower train steps at full width (K=8, B=1024), per "
@@ -2610,6 +2689,10 @@ def main() -> int:
         "bytes": g3["lr_bound"]["bytes"], "bound_ms": g3["lr_bound"]["bound_ms"],
         "bound_by": g3["lr_bound"]["bound_by"]}
     rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], g3["max_abs_err"])
+    for row in rows:  # phase 11
+        row["launcher_refusal"] = refused
+        if four is not None:
+            row["launches_per_four_card_step"] = four_card_launches(four, row["name"])
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -87,6 +87,39 @@ def field_sums(onehot: torch.Tensor, weighted: torch.Tensor) -> torch.Tensor:
     return _pairwise(parts)
 
 
+def _sum_in_order(p: torch.Tensor) -> torch.Tensor:
+    """``Σ_k p[..., k]`` added in order, as XLA's CPU reduce adds a
+    ``jnp.sum`` over the last axis (``Tensor.sum`` differs from k = 9 on)."""
+    out = p[..., 0]
+    for i in range(1, p.shape[-1]):
+        out = out + p[..., i]
+    return out
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a·b + c`` rounded once, as a fused multiply-add: the product is
+    exact in float64, and the sum is exact there too unless the exponents
+    of ``a·b`` and ``c`` lie more than 29 bits apart."""
+    return (a.double() * b.double() + c.double()).to(a.dtype)
+
+
+def k_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``Σ_k a[..., k]·b[..., k]`` in the order of the JAX model's
+    ``einsum("btfk,bftk->btf")`` on XLA's CPU backend: the first
+    ``min(k, 8)`` products rounded and added in order, then each later
+    product fused onto the sum (one rounding); at k = 2 the second
+    product is fused onto the first (tests/test_torch_ffm.py holds the
+    order bit for bit against ``jnp.einsum`` for k up to 17;
+    ``torch.einsum`` differs at k = 2 and from k = 9 on)."""
+    k = a.shape[-1]
+    if k == 2:
+        return _fma(a[..., 1], b[..., 1], a[..., 0] * b[..., 0])
+    out = _sum_in_order(a[..., :8] * b[..., :8])
+    for i in range(8, k):
+        out = _fma(a[..., i], b[..., i], out)
+    return out
+
+
 def ffm_triangle_reference(emb: torch.Tensor, vals: torch.Tensor,
                            fields: torch.Tensor, F: int, k: int) -> torch.Tensor:
     """Plain PyTorch version: ``[B, N, F·k]`` slabs → ``[B, F(F+1)/2]``.
@@ -97,9 +130,9 @@ def ffm_triangle_reference(emb: torch.Tensor, vals: torch.Tensor,
               == torch.arange(F, device=emb.device)).to(emb.dtype)  # [B,N,F]
     weighted = e * vals[:, :, None, None]
     C = field_sums(onehot, weighted)
-    inter = 0.5 * torch.einsum("btfk,bftk->btf", C, C)
+    inter = 0.5 * k_dot(C, C.transpose(1, 2))
     own = torch.einsum("bntk,bnt->bnk", e, onehot)  # w_n→field(n)
-    self_term = 0.5 * (own * own).sum(-1) * vals * vals  # [B,N]
+    self_term = 0.5 * _sum_in_order(own * own) * vals * vals  # [B,N]
     diag = torch.einsum("bn,bnf->bf", self_term, onehot)  # [B,F]
     inter = inter - torch.diag_embed(diag)
     ti, tj, scale = triangle_indices(F)

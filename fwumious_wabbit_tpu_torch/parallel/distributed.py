@@ -10,11 +10,17 @@ The flags are the JAX CLI's: ``--fwt_hosts N --fwt_host_id r
 One process per device: where the JAX package runs one process per host
 and every local device in it (``--fwt_table_axis 2`` alone spans 8 devices
 of one process), the port runs one process per card, and a mesh of
-``n_data × n_table`` needs exactly that many ranks started with these flags
-(parallel/mesh.py). Each rank takes the card ``rank % device_count``
-(utils/device.resolve_device), made current before anything is allocated.
+``n_data × n_table`` needs exactly that many ranks. On one host one command
+starts them (parallel/launch.py); across hosts each rank is started with
+these flags. Each rank takes the card ``rank % device_count``
+(utils/device.resolve_device), made current before anything is allocated,
+and binds the NCCL group to it (``device_id``): the group's communicator,
+and each subgroup's (parallel/mesh.py), is made when the group is, not at
+a first collective on a guessed card.
 
-Usage, one process per card, the same command everywhere but the rank:
+Usage across hosts, one process per card, the same command everywhere but
+the rank (every rank writes the ``-p`` and ``-f`` it is given, as every JAX
+host does: ranks that share a host need paths of their own):
 
     python -m fwumious_wabbit_tpu_torch ... \\
         --fwt_hosts 8 --fwt_host_id $RANK --fwt_coordinator host0:7755 \\
@@ -62,7 +68,8 @@ def initialize(coordinator: str | None, num_hosts: int | None,
         return device
     dist.init_process_group("gloo" if cpu else "nccl",
                             init_method=f"tcp://{coordinator}",
-                            world_size=world, rank=rank, timeout=TIMEOUT)
+                            world_size=world, rank=rank, timeout=TIMEOUT,
+                            device_id=None if cpu else device)
     log.info("process group: rank %d of %d (%s) on %s", rank, world,
              dist.get_backend(), device)
     return device
@@ -72,6 +79,13 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def shutdown() -> None:
+def shutdown(wait: bool = False) -> None:
+    """Leave the group; with ``wait``, once every rank has come here (a
+    run that ended well: a gloo rank that tears its group down while a
+    peer still writes its files, rank 0 of parallel/launch.py, can abort in
+    the group's destructor). A failed rank does not wait: the others may be
+    inside a collective it will never join."""
     if dist.is_initialized():
+        if wait:
+            dist.barrier()
         dist.destroy_process_group()

@@ -24,7 +24,14 @@ group):
 * the sends have a static capacity of ``slack·K/n_table`` slots per owner
   (equal splits, which NCCL and gloo both take); an overflowed occurrence
   reads zero rows and drops its update for that step, and the step counts
-  such drops over the whole mesh.
+  such drops over the whole mesh. Only occurrences that matter take a slot:
+  in the lookup those with a value and a combo or field (padding, id 0,
+  would all go to owner 0 and push real rows out of its bucket: at B=1024
+  on a 1×4 mesh the C++ ingest's two padded FFM positions per example
+  fill half of every owner's slots), in the update the rows with a
+  gradient. The others read zero rows and send nothing, which changes
+  nothing: their contributions and gradients are 0. The JAX sharded step
+  buckets every occurrence.
 
 The owner-local tail is ``opt.apply_rows`` on the rank's own block: the
 batch-mean cap over the gathered global batch (ops/adagrad.batch_mean_grads),
@@ -39,8 +46,15 @@ row. The tower's dense gradients and Σg² meet in one ``all_reduce`` over the
 dense axes (data; data and table for a2a) before the tower's update: every
 gradient of the step is complete before any weight is written.
 
-Host multiplicity counts (``lr_counts``/``ffm_counts``) are not read: as in
-the JAX sharded step the cap is taken from the gathered rows themselves.
+The batch-mean cap takes the host's multiplicity counts
+(``lr_counts``/``ffm_counts``) when the batch carries them, as the
+single-device step does: the host counted them over the global batch, so
+each rank's slice scales its gradients by the same factors before dedup,
+and the mesh trains what one device trains (the CLI's batches carry them).
+Without them the cap is taken from the gathered rows themselves, as in the
+JAX sharded step, which never reads the counts: the two differ where the
+host's 8-bit count code rounds a count up (above 15, not of the form
+m·2^e with m < 16; a partial last batch's constant feature, say).
 """
 
 from __future__ import annotations
@@ -56,9 +70,6 @@ from ..ops import ffm, tables
 from ..train import step as st
 from .mesh import DATA_AXIS, TABLE_AXIS, Mesh, all_gather
 
-# the batch arrays the sharded step reads: the train step's, without the
-# host counts
-KEYS = tuple(k for k in st.TRAIN_KEYS if not k.endswith("_counts"))
 # bytes of the collectives' outputs on this rank: a per-rank proxy of the
 # exchange's traffic (the JAX tests read the same off the compiled HLO)
 COLLECTIVE_BYTES = 0
@@ -109,7 +120,7 @@ def _owner_rows(mesh: Mesh, rl: int, ids: torch.Tensor, g: torch.Tensor):
     return torch.where(ok, lrid, rl), g
 
 
-def _sharded_row_update(mesh: Mesh, opt, w, acc, rid, grows) -> None:
+def _sharded_row_update(mesh: Mesh, opt, w, acc, rid, grows, pre: bool) -> None:
     """The owner-side update of a row-sharded table (psum exchange): this
     data shard's occurrences gathered over the data group, so each rank
     applies the whole batch to its block."""
@@ -117,20 +128,22 @@ def _sharded_row_update(mesh: Mesh, opt, w, acc, rid, grows) -> None:
     rid_all = _all_gather(rid.to(torch.int32), mesh.data_group, n_d)
     grows_all = _all_gather(grows, mesh.data_group, n_d)
     lrid, g = _owner_rows(mesh, w.shape[0], rid_all, grows_all)
-    opt.apply_rows(w, acc, lrid, g)
+    opt.apply_rows(w, acc, lrid, g, pre_scaled=pre)
 
 
 # -- the all-to-all exchange ---------------------------------------------------------------
 
 
-def _bucket_slots(owner: torch.Tensor, n_t: int, capacity: int):
-    """``(slot, valid)``: each occurrence's place in its owner's send bucket
-    (the number of earlier occurrences with the same owner, an exclusive
-    one-hot cumsum) and whether it fits the capacity. An overflowed one gets
-    ``slot == capacity``."""
-    oh = (owner[:, None] == torch.arange(n_t, device=owner.device)).to(torch.int32)
+def _bucket_slots(owner: torch.Tensor, n_t: int, capacity: int,
+                  keep: torch.Tensor):
+    """``(slot, valid)``: each kept occurrence's place in its owner's send
+    bucket (the number of earlier kept occurrences with the same owner, an
+    exclusive one-hot cumsum) and whether it fits the capacity. An
+    overflowed or unkept one gets ``slot == capacity``."""
+    oh = ((owner[:, None] == torch.arange(n_t, device=owner.device))
+          & keep[:, None]).to(torch.int32)
     rank = ((torch.cumsum(oh, 0) - oh) * oh).sum(1)
-    valid = rank < capacity
+    valid = keep & (rank < capacity)
     return torch.where(valid, rank, capacity), valid
 
 
@@ -148,16 +161,17 @@ def _sends(owner, slot, valid, capacity: int, n_t: int, values: list) -> list:
 
 
 def _a2a_take(mesh: Mesh, local: torch.Tensor, rid: torch.Tensor,
-              capacity: int) -> torch.Tensor:
+              keep: torch.Tensor, capacity: int) -> torch.Tensor:
     """Rows ``rid [...]`` of a row-sharded table by the all-to-all id
-    exchange: bucket by owner, send the ids, the owners take their rows,
-    send the rows back. An overflowed occurrence reads a zero row."""
+    exchange: bucket the ``keep`` occurrences by owner, send the ids, the
+    owners take their rows, send the rows back. An overflowed or unkept
+    occurrence reads a zero row."""
     n_t = mesh.shape[TABLE_AXIS]
     rl, lane = local.shape
     shape = rid.shape
     rid = rid.reshape(-1).long()
     owner = rid // rl  # tables are padded to n_t equal blocks
-    slot, valid = _bucket_slots(owner, n_t, capacity)
+    slot, valid = _bucket_slots(owner, n_t, capacity, keep.reshape(-1))
     (send_ids,) = _sends(owner, slot, valid, capacity, n_t, [rid.to(torch.int32)])
     recv_ids = _all_to_all(send_ids, mesh.table_group)  # requests to me
     lrid = (recv_ids.long() - mesh.table_index * rl).clamp(0, rl - 1)
@@ -167,7 +181,7 @@ def _a2a_take(mesh: Mesh, local: torch.Tensor, rid: torch.Tensor,
     return rows.reshape(*shape, lane)
 
 
-def _a2a_row_update(mesh: Mesh, opt, w, acc, rid, grows,
+def _a2a_row_update(mesh: Mesh, opt, w, acc, rid, grows, pre: bool,
                     capacity: int) -> torch.Tensor:
     """The owner-side update by all-to-all: ids and gradient rows travel to
     their owner over the table group, then one ``all_gather`` over the data
@@ -177,7 +191,8 @@ def _a2a_row_update(mesh: Mesh, opt, w, acc, rid, grows,
     n_t, n_d = mesh.shape[TABLE_AXIS], mesh.shape[DATA_AXIS]
     rid = rid.reshape(-1).long()
     owner = rid // w.shape[0]
-    slot, valid = _bucket_slots(owner, n_t, capacity)
+    real = (grows != 0.0).any(1)
+    slot, valid = _bucket_slots(owner, n_t, capacity, real)
     send_ids, send_g = _sends(owner, slot, valid, capacity, n_t,
                               [rid.to(torch.int32), grows])
     recv_ids = _all_to_all(send_ids, mesh.table_group)
@@ -186,8 +201,7 @@ def _a2a_row_update(mesh: Mesh, opt, w, acc, rid, grows,
     all_g = _all_gather(recv_g, mesh.data_group, n_d)
     # unfilled send slots carry id 0 and a zero row: inert
     lrid, g = _owner_rows(mesh, w.shape[0], all_ids, all_g)
-    opt.apply_rows(w, acc, lrid, g)
-    real = (grows != 0.0).any(1)
+    opt.apply_rows(w, acc, lrid, g, pre_scaled=pre)
     return ((~valid) & real).sum().to(torch.int32)
 
 
@@ -262,20 +276,31 @@ def exchanged_slabs(rows: torch.Tensor, ids: torch.Tensor,
             dataclasses.replace(spec, padded_size=buf.shape[0] * tables.LANE))
 
 
+def _occupied(vals, slots: torch.Tensor, n: int) -> torch.Tensor:
+    """The occurrences that contribute: a combo or field in ``[0, n)`` and,
+    where the batch carries values, a value other than 0."""
+    keep = (slots >= 0) & (slots < n)
+    return keep if vals is None else keep & (vals != 0.0)
+
+
 def _gather(model: FwModel, bd: dict, take) -> tuple:
     """``(leaves, ffm_rows)``: the leaves of train/step.gather — the LR
     weights picked from their exchanged rows, and the FFM slab leaf — and
     the FFM slabs' exchanged rows as a table with its ids and spec
     (:func:`exchanged_slabs`, FwModel.ffm_outputs ``rows``)."""
-    lr_ids = model.lr_ids_combos(bd)[0]
-    rows = take(model.lr_w, lr_ids >> tables.LANE_BITS)  # [B, L, 128]
+    lr_ids, combos = model.lr_ids_combos(bd)
+    keep = _occupied(bd.get("lr_vals"), combos, model.num_combos)
+    rows = take(model.lr_w, lr_ids >> tables.LANE_BITS, keep)  # [B, L, 128]
     lane = (lr_ids & (tables.LANE - 1)).long()
     lr_wg = rows.gather(-1, lane[..., None])[..., 0]
     leaves = [lr_wg.detach().requires_grad_(True)]
     if not model.has_ffm:
         return leaves, None
     ids = bd["ffm_ids"].to(torch.int32)
-    rows = take(model.ffm_w, slab_rows(ids, model.ffm_spec))
+    rid = slab_rows(ids, model.ffm_spec)
+    keep = _occupied(bd.get("ffm_vals"), bd["ffm_fields"], model.num_fields)
+    rows = take(model.ffm_w, rid, keep[..., None].expand(rid.shape)
+                if rid.dim() > keep.dim() else keep)
     leaves.append(ffm.slab_leaf(ids, model.num_fields, model.ffm_k))
     return leaves, exchanged_slabs(rows, ids, model.ffm_spec)
 
@@ -316,33 +341,33 @@ def make_sharded_train_step(model: FwModel, mesh: Mesh, exchange: str = "auto",
     device = model.lr_w.device
     n_t = mesh.shape[TABLE_AXIS]
 
-    def take(local, rid):
+    def take(local, rid, keep):
         if a2a:
-            return _a2a_take(mesh, local, rid,
+            return _a2a_take(mesh, local, rid, keep,
                              a2a_capacity(rid.numel(), n_t, capacity_factor))
         return _sharded_take(mesh, local, rid)
 
-    def row_update(opt, w, acc, rid, grows):
+    def row_update(opt, w, acc, rows):
+        rid, grows, pre = rows
         if a2a:
             cap = a2a_capacity(rid.numel(), n_t, capacity_factor)
-            return _a2a_row_update(mesh, opt, w, acc, rid, grows, cap)
-        _sharded_row_update(mesh, opt, w, acc, rid, grows)
+            return _a2a_row_update(mesh, opt, w, acc, rid, grows, pre, cap)
+        _sharded_row_update(mesh, opt, w, acc, rid, grows, pre)
         return None
 
     def train_step(batch: dict):
-        bd = st.to_device(batch, KEYS, device)
+        bd = st.to_device(batch, st.TRAIN_KEYS, device)
         leaves, ffm_rows = _gather(model, bd, take)
         x, p, dlogit, residuals = st.forward(model, bd, leaves, ffm_rows)
         grads, dense = st.backward(model, x, leaves, dlogit, residuals)
         if dense is not None:
             st.tower_update(model, *_reduce_dense(dense, dense_group))
-        rid, grows, _ = st.lr_update_rows(model, bd, grads[0])
         drops = [row_update(model.opt_lr, model.lr_w, getattr(model, "lr_acc", None),
-                            rid, grows)]
+                            st.lr_update_rows(model, bd, grads[0]))]
         if model.has_ffm:
-            rid, grows, _ = st.ffm_update_rows(model, bd, grads[1])
             drops.append(row_update(model.opt_ffm, model.ffm_w,
-                                    getattr(model, "ffm_acc", None), rid, grows))
+                                    getattr(model, "ffm_acc", None),
+                                    st.ffm_update_rows(model, bd, grads[1])))
         if not with_stats:
             return p
         if a2a:
@@ -362,9 +387,9 @@ def make_sharded_predict_step(model: FwModel, mesh: Mesh, exchange: str = "auto"
     exchange = resolve_exchange(exchange, mesh)
     device = model.lr_w.device
 
-    def take(local, rid):
+    def take(local, rid, keep):
         if exchange == "a2a":
-            return _a2a_take(mesh, local, rid, max(1, rid.numel()))
+            return _a2a_take(mesh, local, rid, keep, max(1, rid.numel()))
         return _sharded_take(mesh, local, rid)
 
     def predict_step(batch: dict) -> torch.Tensor:

@@ -41,13 +41,15 @@ the default path here fails with the compiler's message and exits
 non-zero: only ``--fwt_no_native`` chooses the Python ingest.
 
 Under a mesh (``--fwt_data_axis``/``--fwt_table_axis``, and a process
-group of as many ranks, one per device: ``--fwt_hosts N --fwt_host_id r
---fwt_coordinator host:port``, :func:`_join`), every rank reads the whole
-input, trains its shard of each batch through parallel/sharded.py on its
-own row blocks of the tables, gathers the predictions back in one global
-order and writes the whole ``-p`` stream, and ``-f`` gathers the tables:
-every rank writes the same file. Batches are not packed under a mesh, as
-in the JAX CLI. The flag vocabulary is the JAX package's (the port's copy in
+group of as many ranks, one per device, :func:`_join`) every rank reads the
+whole input, trains its shard of each batch through parallel/sharded.py on
+its own row blocks of the tables, gathers the predictions back in one
+global order, and ``-f`` gathers the tables. On one host one command starts
+the ranks (parallel/launch.py), and rank 0 alone writes ``-p``, ``-f`` and
+the ``-c`` cache, as the JAX CLI's one process does; across hosts
+(``--fwt_hosts N --fwt_host_id r --fwt_coordinator host:port``) every rank
+writes them, as every JAX host does. Batches are not packed under a mesh,
+as in the JAX CLI. The flag vocabulary is the JAX package's (the port's copy in
 config/cmdline.py).
 Every mode runs on the CUDA card; the CPU only with ``--fwt_platform cpu``.
 ``--fwt_serve_engine`` keeps its meaning, except that ``auto`` means the
@@ -61,7 +63,9 @@ sparse update kernel always runs).
 
 ``FWT_PIPELINE_DEPTH`` bounds the prediction fetches in flight to the
 writer (default 3); ``FWT_COUNTERS_OUT=<path>`` writes the run's examples,
-elapsed seconds and in-run counters as JSON.
+elapsed seconds and in-run counters as JSON, with the kernels' launches,
+the files it wrote, the card's peak memory and, under a mesh, the process
+group's set-up seconds and the sharded steps' collective bytes.
 """
 
 from __future__ import annotations
@@ -70,6 +74,7 @@ import json
 import logging
 import os
 import queue
+import sys
 import threading
 import time
 
@@ -119,11 +124,14 @@ def _join(args):
     ``--fwt_table_axis``, or every rank on data — is made when the axes ask
     for more than one device or the group has more than one rank. One
     process per device: a mesh must have exactly the group's ranks, and
-    one that does not raises ValueError naming the flags."""
+    one that does not raises ValueError naming the flags. The mesh's
+    ``setup_s`` is the seconds from joining the group to the mesh's
+    subgroups made."""
     from ..parallel import distributed
 
     n_table = int(args.fwt_table_axis or 1)
     n_data = args.fwt_data_axis
+    t0 = time.perf_counter()
     if distributed.wanted(args.fwt_coordinator, args.fwt_hosts):
         device = distributed.initialize(args.fwt_coordinator, args.fwt_hosts,
                                         args.fwt_host_id, args.fwt_platform)
@@ -141,7 +149,9 @@ def _join(args):
             f"--fwt_host_id r --fwt_coordinator host:port")
     from ..parallel import mesh as pmesh
 
-    return device, pmesh.Mesh(n_data, n_table)
+    mesh = pmesh.Mesh(n_data, n_table)
+    mesh.setup_s = time.perf_counter() - t0
+    return device, mesh
 
 
 def record_stream(args, vw):
@@ -746,7 +756,7 @@ def main(argv=None) -> int:
             return 1
         return 0
 
-    from ..parallel import distributed
+    from ..parallel import distributed, launch
     from ..persistence import model_file
     from ..serve.server import Serving
 
@@ -778,20 +788,52 @@ def main(argv=None) -> int:
             args.initial_regressor, immutable=True, args=args, device=device)
         Serving(args, mi, vw, model, model_path=args.initial_regressor).serve()
         return 0
+    if launch.requested(args):
+        return launch.main(args, list(sys.argv[1:] if argv is None else argv))
+    writes = launch.writes_files(args.fwt_host_id)
+    if not writes:
+        # a launched rank other than 0: rank 0 writes the -p stream and the
+        # record cache; this one parses the text
+        args.predictions, args.predictions_stdout, args.cache = None, False, False
+    rc = 1
     try:
         try:
             device, mesh = _join(args)
         except (NoDeviceError, ValueError) as e:
             log.error("%s", e)
             return 1
-        return _train(args, device, mesh)
+        rc = _train(args, device, mesh, writes)
+        return rc
     finally:
-        distributed.shutdown()
+        distributed.shutdown(wait=rc == 0)
 
 
-def _train(args, device, mesh) -> int:
+def _add_run_facts(result: dict, model, mesh) -> None:
+    """The kernels' launches in this process, the card's peak memory and,
+    under a mesh, the group's set-up seconds and the sharded steps'
+    collective bytes on this rank: what FWT_COUNTERS_OUT adds to the
+    counters."""
+    from ..ops import ffm, sparse_update
+
+    result["launches"] = {"ffm_triangle": ffm.LAUNCHES,
+                          "ffm_triangle_bwd": ffm.BWD_LAUNCHES,
+                          "sparse_adagrad_update": sparse_update.LAUNCHES}
+    device = model.lr_w.device
+    if device.type == "cuda":
+        result["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+    if mesh is not None:
+        from ..parallel import sharded
+
+        result["mesh"] = {"shape": [mesh.shape["data"], mesh.shape["table"]],
+                          "rank": mesh.rank, "setup_s": mesh.setup_s,
+                          "collective_bytes": sharded.COLLECTIVE_BYTES}
+
+
+def _train(args, device, mesh, writes: bool = True) -> int:
     """Training or ``-t`` on ``device``: the model from ``-i`` or fresh,
-    this rank's row blocks of it under a mesh, the loop, ``-f``."""
+    this rank's row blocks of it under a mesh, the loop, ``-f`` (written
+    when ``writes``; a rank that does not write still takes part in the
+    gather of rank 0's table group)."""
     from ..models.model import FwModel
     from ..persistence import model_file
 
@@ -827,9 +869,16 @@ def _train(args, device, mesh) -> int:
         # (src/main.rs:44-47,218-221)
         log.error("Global error: %s", e)
         return 1
-    if args.final_regressor:
+    result["files_written"] = [args.predictions] if args.predictions else []
+    if args.final_regressor and writes:
         model_file.save_model(args.final_regressor, mi, vw, model,
                               quantize_weights=bool(args.weight_quantization))
+        result["files_written"].append(args.final_regressor)
+    elif args.final_regressor and mesh is not None and mesh.data_index == 0:
+        from ..parallel import mesh as pmesh
+
+        pmesh.gather_tables(model.params(), mesh, pmesh.table_rows(model))
+    _add_run_facts(result, model, mesh)
     cpath = os.environ.get("FWT_COUNTERS_OUT")
     if cpath:
         try:

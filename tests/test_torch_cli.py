@@ -82,23 +82,33 @@ def test_second_card_is_refused(tmp_path):
 
 
 def test_training_is_not_yet_ported(tmp_path):
-    """The modes this test once found refused are ported. A mesh still
-    needs its ranks, one process per device (parallel/distributed.py): in
-    a process of its own, with a tower or the record cache, the run exits
-    1 naming the flags and writes nothing (a mesh's runs:
-    tests/test_torch_mesh_cli.py). Convert writes the inference file
+    """The modes this test once found refused are ported. A mesh with no
+    process-group flags now starts its own ranks, one per device
+    (parallel/launch.py): the tower under ``--fwt_table_axis 2`` trains on
+    two gloo ranks in one command, and rank 0 alone writes ``-p``, a
+    prediction per line within 2e-6 of the same command in one process (a
+    mesh's runs: tests/test_torch_mesh_cli.py, test_torch_launch.py). A
+    process group without its coordinator still exits 1 naming the flag and
+    writes nothing. Convert writes the inference file
     (tests/test_torch_convert.py)."""
     path, data = model_and_data(tmp_path)
-    for extra, named in (
-            (["--nn_layers", "1", "--nn", "0:width:4", "--fwt_table_axis", "2"],
-             "--fwt_table_axis"),
-            (["-c", "--fwt_hosts", "2"], "--fwt_coordinator")):
-        r = run_cli(["--data", str(data), "--keep", "A", "--fwt_platform",
-                     "cpu", "-p", str(tmp_path / "p.out"), *extra], tmp_path)
-        assert r.returncode == 1, extra
-        assert named in r.stderr, extra
+    common = ["--data", str(data), "--keep", "A", "--fwt_platform", "cpu"]
+    r = run_cli(common + ["-c", "--fwt_hosts", "2", "-p", str(tmp_path / "p.out")],
+                tmp_path)
+    assert r.returncode == 1
+    assert "--fwt_coordinator" in r.stderr
     assert not (tmp_path / "p.out").exists()
     assert not (tmp_path / "d.vw.fwcache").exists()
+    tower = ["--nn_layers", "1", "--nn", "0:width:4"]
+    r = run_cli(common + tower + ["--fwt_table_axis", "2",
+                                  "-p", str(tmp_path / "mesh.out")], tmp_path)
+    assert r.returncode == 0, r.stderr
+    assert "[rank 1]" in r.stderr
+    r = run_cli(common + tower + ["-p", str(tmp_path / "one.out")], tmp_path)
+    assert r.returncode == 0, r.stderr
+    got, want = read_preds(tmp_path / "mesh.out"), read_preds(tmp_path / "one.out")
+    assert got.shape == want.shape == (70,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
     r = run_cli(["-i", str(path), "--convert_inference_regressor",
                  str(tmp_path / "inf.fwt"), "--fwt_platform", "cpu"], tmp_path)
     assert r.returncode == 0, r.stderr

@@ -62,10 +62,12 @@ def test_initialize_maps_the_flags(two_cards, monkeypatch):
     assert distributed.initialize("host0:7755", 4, 3, None) == torch.device("cuda:1")
     assert seen == {"backend": "nccl", "init_method": "tcp://host0:7755",
                     "world_size": 4, "rank": 3,
-                    "timeout": datetime.timedelta(seconds=300)}
+                    "timeout": datetime.timedelta(seconds=300),
+                    "device_id": torch.device("cuda:1")}
     assert two_cards == [1]
     assert distributed.initialize("host0:7755", 4, 2, "cpu") == torch.device("cpu")
     assert seen["backend"] == "gloo" and seen["rank"] == 2
+    assert seen["device_id"] is None
     with pytest.raises(ValueError, match="--fwt_host_id 4"):
         distributed.initialize("host0:7755", 4, 4, "cpu")
     with pytest.raises(ValueError, match="--fwt_coordinator"):

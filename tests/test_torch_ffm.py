@@ -197,32 +197,32 @@ def test_gradient_is_bit_equal_to_jax_vjp(F, k, N, B):
 
 
 def test_xla_sums_k10_in_another_order():
-    """What remains of the port's float order against XLA's (ROADMAP §3),
-    pinned: at the FFM gate's F=2, k=10 (N=2, B=256) the plain triangle's
-    ``½Σ_k C[t,f,k]·C[f,t,k]`` adds its ten products in another order than
-    the JAX model's ``einsum("btfk,bftk->btf")`` on XLA's CPU backend, whose
-    dot contracts k with fused multiply-adds in an order a plain PyTorch
-    version does not follow. The first differing element is [0, 2]: XLA
-    0.22124211 (bits 1046646091), the port 0.2212421 (bits 1046646090), one
-    ulp; 196 of 768 differ, by at most 1.2e-7 (the diagonal's cancellation).
-    At k=8 the two agree bit for bit. Through the forward's logit, an SGD
-    run of the FFM gate drifts from the JAX CLI's in last bits
-    (tests/test_torch_gates.py holds it within 2e-6)."""
-    table, ids, vals, fields, spec = ffm_case(2, 10, 2, 256, "minus1")
-    emb = jax_slabs(table, ids, spec)
-    model = jax_model(2, 10)
-    batch = {"ffm_vals": jnp.asarray(vals), "ffm_fields": jnp.asarray(fields)}
-    xla = np.asarray(model.triangle(model.ffm_outputs(emb, batch)))
-    got = ffm.ffm_fused(*port_inputs(table, ids, vals, fields), 2, 10, spec).numpy()
-    differ = np.argwhere(got != xla)
-    assert len(differ) == 196 and tuple(differ[0]) == (0, 2)
-    assert xla[0, 2].view(np.uint32) == 1046646091
-    assert got[0, 2].view(np.uint32) == 1046646090
-    assert np.abs(got - xla).max() <= 1.2e-7
-    table, ids, vals, fields, spec = ffm_case(2, 8, 4, 256, "minus1")
-    vals[:] = 1.0
-    batch = {"ffm_vals": jnp.asarray(vals), "ffm_fields": jnp.asarray(fields)}
-    np.testing.assert_array_equal(
-        ffm.ffm_fused(*port_inputs(table, ids, vals, fields), 2, 8, spec).numpy(),
-        np.asarray(jax_model(2, 8).triangle(jax_model(2, 8).ffm_outputs(
-            jax_slabs(table, ids, spec), batch))))
+    """Once the remnant of the port's float order against XLA's (ROADMAP
+    §3): at the FFM gate's F=2, k=10 (N=2, B=256) the plain triangle's
+    ``½Σ_k C[t,f,k]·C[f,t,k]`` and its self term's ``Σ_k own²`` added in
+    another order than the JAX model's ``einsum("btfk,bftk->btf")`` and
+    ``jnp.sum`` on XLA's CPU backend (196 of 768 elements differed, by up
+    to 1.2e-7). They now add in XLA's orders (ops/ffm.k_dot: the first
+    eight products in order, the rest fused on; the self term in order):
+    the triangle is XLA's bit for bit at the gate's shape, with random
+    values, as at k=8."""
+    for F, k, N in ((2, 10, 2), (2, 8, 4)):
+        table, ids, vals, fields, spec = ffm_case(F, k, N, 256, "minus1")
+        batch = {"ffm_vals": jnp.asarray(vals), "ffm_fields": jnp.asarray(fields)}
+        model = jax_model(F, k)
+        np.testing.assert_array_equal(
+            ffm.ffm_fused(*port_inputs(table, ids, vals, fields), F, k, spec).numpy(),
+            np.asarray(model.triangle(model.ffm_outputs(jax_slabs(table, ids, spec),
+                                                        batch))), err_msg=str(k))
+
+
+@pytest.mark.parametrize("k", range(1, 18))
+def test_k_dot_adds_in_xla_order(k):
+    """ops/ffm.k_dot against the JAX model's ``einsum("btfk,bftk->btf")``
+    on XLA's CPU backend, bit for bit at every k up to 17;
+    ``torch.einsum`` differs at k = 2 and from k = 9 on."""
+    C = np.random.default_rng(k).normal(size=(64, 3, 3, k)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda c: jnp.einsum("btfk,bftk->btf", c, c,
+                                                   precision="highest"))(C))
+    t = torch.from_numpy(C)
+    np.testing.assert_array_equal(ffm.k_dot(t, t.transpose(1, 2)).numpy(), want)

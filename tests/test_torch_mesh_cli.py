@@ -10,8 +10,9 @@ single-rank run; the ``-f`` files of the same size as a plain run's (the
 mesh padding cut off) with every table within rtol 1e-5 / atol 1e-6 of the
 port's single-rank run and of the JAX mesh run (the training CLI parity
 bound of tests/test_torch_train_cli.py). Besides: ``-t -i`` under a mesh,
-``a2a_dropped`` in FWT_COUNTERS_OUT, and a mesh larger than the process
-group exiting 1 with the flags named.
+``a2a_dropped`` in FWT_COUNTERS_OUT, the tower under a 1×2 mesh started by
+one command (parallel/launch.py) byte-equal to its explicit launch, and a
+mesh larger than an explicit process group exiting 1 with the flags named.
 
 Each launch starts its ranks once per module, from one module-scoped
 fixture, every rank with its own timeout."""
@@ -29,6 +30,7 @@ import pytest
 
 from fwumious_wabbit_tpu.persistence import model_file as jmf
 from fwumious_wabbit_tpu.train.loop import main as jax_main
+from fwumious_wabbit_tpu_torch import synthetic
 from fwumious_wabbit_tpu_torch.train.loop import main
 
 from torch_parity import free_port, jax_native_loaded, to_numpy  # noqa: F401 (autouse)
@@ -50,6 +52,8 @@ LAUNCHES = {
     "a2a_explicit_1x2": (2, ["--fwt_table_axis", "2", "--fwt_exchange", "a2a",
                              "--fwt_a2a_capacity", "8.0"]),
 }
+# BASELINE config 3's tower on a 1×2 mesh: the tower's dense all_reduce
+TOWER_1X2 = ["--fwt_table_axis", "2", *synthetic.TOWER_FLAGS]
 
 
 def write_dataset(d: Path, rows: int = 256) -> Path:
@@ -64,6 +68,14 @@ def write_dataset(d: Path, rows: int = 256) -> Path:
     return data
 
 
+def rank_env(d: Path, counters: Path | None = None) -> dict:
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO), "HOME": str(d),
+           "OMP_NUM_THREADS": "1"}
+    if counters is not None:
+        env["FWT_COUNTERS_OUT"] = str(counters)
+    return env
+
+
 def launch(d: Path, tag: str, world: int, argv: list) -> list:
     """``world`` ranks of the port's CLI with ``argv``; each writes
     ``{tag}_{r}.out``, ``{tag}_{r}.fwt`` and ``{tag}_{r}.json``. Returns
@@ -71,9 +83,7 @@ def launch(d: Path, tag: str, world: int, argv: list) -> list:
     port = free_port()
     procs = []
     for r in range(world):
-        env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO), "HOME": str(d),
-               "OMP_NUM_THREADS": "1",
-               "FWT_COUNTERS_OUT": str(d / f"{tag}_{r}.json")}
+        env = rank_env(d, d / f"{tag}_{r}.json")
         cmd = [sys.executable, "-m", "fwumious_wabbit_tpu_torch", *argv,
                "--fwt_platform", "cpu", "-p", str(d / f"{tag}_{r}.out"),
                "--fwt_hosts", str(world), "--fwt_host_id", str(r),
@@ -99,13 +109,21 @@ def launch(d: Path, tag: str, world: int, argv: list) -> list:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Every launch, the port's single-rank run, and ``-t -i`` of the
-    single-rank model on a 2-rank a2a mesh and on one rank."""
+    """Every launch, the port's single-rank run, ``-t -i`` of the
+    single-rank model on a 2-rank a2a mesh and on one rank, and the tower
+    on a 1×2 mesh, launched explicitly and by one command."""
     d = tmp_path_factory.mktemp("mesh_cli")
     data = write_dataset(d)
     base = COMMON + ["--data", str(data)]
     for tag, (world, flags) in LAUNCHES.items():
         launch(d, tag, world, base + flags)
+    launch(d, "tower_1x2", 2, base + TOWER_1X2)
+    one = subprocess.run(
+        [sys.executable, "-m", "fwumious_wabbit_tpu_torch", *base, *TOWER_1X2,
+         "--fwt_platform", "cpu", "-p", str(d / "tower_one.out"),
+         "-f", str(d / "tower_one.fwt")], cwd=REPO, env=rank_env(d),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=RANK_TIMEOUT_S)
+    assert one.returncode == 0, one.stdout.decode(errors="replace")[-4000:]
     single = [*base, "--fwt_platform", "cpu", "-p", str(d / "single.out"),
               "-f", str(d / "single.fwt")]
     assert main(single) == 0
@@ -198,13 +216,28 @@ def test_testonly_predicts_through_the_mesh(runs):
         assert (d / f"predict_1x2_{r}.out").read_bytes() == want
 
 
+def test_one_command_tower_mesh_equals_the_explicit_run(runs):
+    """The tower under ``--fwt_table_axis 2`` with no process-group flags:
+    one command starts both ranks, and rank 0's ``-p`` and ``-f`` are the
+    explicit launch's byte for byte."""
+    d, _ = runs
+    for ext in ("out", "fwt"):
+        assert (d / f"tower_one.{ext}").read_bytes() == \
+            (d / f"tower_1x2_0.{ext}").read_bytes(), ext
+    assert len((d / "tower_one.out").read_bytes().splitlines()) == 256
+
+
 def test_a_mesh_larger_than_the_group_exits_1(tmp_path, caplog):
-    """One process per device: --fwt_table_axis 2 in a process of its own
-    is refused, naming the flags, and writes nothing."""
+    """One process per device: --fwt_table_axis 2 in an explicit process
+    group of one rank (``--fwt_hosts 1 --fwt_coordinator``) is refused,
+    naming the flags, and writes nothing. Without the group's flags the
+    same mesh starts its own ranks
+    (test_one_command_tower_mesh_equals_the_explicit_run)."""
     data = write_dataset(tmp_path, rows=8)
     with caplog.at_level(logging.ERROR):
         rc = main(COMMON + ["--data", str(data), "--fwt_platform", "cpu",
-                            "--fwt_table_axis", "2",
+                            "--fwt_table_axis", "2", "--fwt_hosts", "1",
+                            "--fwt_coordinator", f"127.0.0.1:{free_port()}",
                             "-p", str(tmp_path / "p.out")])
     assert rc == 1
     assert "--fwt_table_axis" in caplog.text and "--fwt_hosts" in caplog.text

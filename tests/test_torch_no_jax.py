@@ -12,7 +12,9 @@ reading it back, with equal predictions and a model file that keeps its
 tower; and the last modules ported: convert (quantized, served by the
 embedded engine), the weight patcher's C++ tool between two trained model
 files, the sharded step on a gloo group of one rank, and the FFM gate
-(gates.py) over a small dataset."""
+(gates.py) over a small dataset; and the one-command launcher
+(parallel/launch.py) and multicard.py, which on a host of fewer than four
+cards exits 1 and says so."""
 
 import subprocess
 import sys
@@ -105,7 +107,8 @@ SCRIPT = textwrap.dedent("""
     _, _, towered = load_model(tmp + "/n.fwt", device="cpu")
     assert towered.has_nn and float(towered.layers[0].w_acc.abs().sum()) > 0
     for name in ("tools.weight_patcher", "parallel.distributed",
-                 "parallel.mesh", "parallel.sharded"):
+                 "parallel.mesh", "parallel.sharded", "parallel.launch",
+                 "multicard"):
         assert "fwumious_wabbit_tpu_torch." + name in names, name
     # convert, quantized, and the converted file on the embedded engine
     assert main(["--convert_inference_regressor", tmp + "/q.fwt", "-i",
@@ -151,6 +154,10 @@ SCRIPT = textwrap.dedent("""
     res = gates.run("ffm", cpu=True, work=Path(tmp) / "gates")
     assert res["lines"] == 200 and res["inference_equals_full"] == 200
     assert res["train"]["rows"] == 600 and res["device"] == "cpu"
+    import torch
+    from fwumious_wabbit_tpu_torch import multicard
+    if torch.cuda.device_count() < multicard.CARDS:
+        assert multicard.main(["a"]) == 1
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("imported", len(names), "modules")
 """)

@@ -10,8 +10,6 @@ jax, so it also runs on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_sharded_cuda.py
 """
 
-import socket
-
 import numpy as np
 import pytest
 import torch
@@ -52,12 +50,6 @@ def test_fused_kernels_read_exchanged_rows(cuda, F, k, N, B):
     assert within(d_emb, ffm.ffm_fused_bwd_reference(g_out, t, i, v, f, F, k, spec))
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @pytest.mark.cuda
 def test_sharded_step_on_an_nccl_group_of_one(cuda):
     from fwumious_wabbit_tpu_torch.config.model_instance import (
@@ -65,7 +57,7 @@ def test_sharded_step_on_an_nccl_group_of_one(cuda):
     from fwumious_wabbit_tpu_torch.config.vwmap import NamespaceDescriptor
     from fwumious_wabbit_tpu_torch.models.model import FwModel
     from fwumious_wabbit_tpu_torch.ops import sparse_update
-    from fwumious_wabbit_tpu_torch.parallel import distributed
+    from fwumious_wabbit_tpu_torch.parallel import distributed, launch
     from fwumious_wabbit_tpu_torch.parallel import mesh as pmesh
     from fwumious_wabbit_tpu_torch.train.step import make_train_step
 
@@ -94,7 +86,7 @@ def test_sharded_step_on_an_nccl_group_of_one(cuda):
     ref.load_params(ref.init_params(cuda))
     step = make_train_step(ref)
     want = torch.stack([step(b) for b in batches])
-    distributed.initialize(f"127.0.0.1:{_free_port()}", 1, 0, None)
+    distributed.initialize(f"127.0.0.1:{launch.free_port()}", 1, 0, None)
     try:
         mesh = pmesh.Mesh(1, 1)
         for exchange in ("psum", "a2a"):

@@ -113,20 +113,25 @@ def test_final_regressor_needs_save_resume(tmp_path):
     assert not (tmp_path / "m.fwt").exists()
 
 
-@pytest.mark.parametrize("extra", [
-    ["--nn_layers", "1", "--nn", "0:width:4", "--fwt_table_axis", "2"],
-    ["-c", "--fwt_data_axis", "2"]], ids=["nn", "cache"])
-def test_unported_training_modes_are_refused(tmp_path, extra):
-    """A tower and the record cache train (tests/test_torch_tower_cli.py,
-    test_torch_cache.py); asked for with a mesh in a process of its own —
-    one process per device, so a mesh needs as many ranks
-    (tests/test_torch_mesh_cli.py) — the run is refused with exit 1 and
-    writes nothing."""
+@pytest.mark.parametrize("extra,mesh", [
+    (["--nn_layers", "1", "--nn", "0:width:4"], ["--fwt_table_axis", "2"]),
+    (["-c"], ["--fwt_data_axis", "2"])], ids=["nn", "cache"])
+def test_unported_training_modes_are_refused(tmp_path, extra, mesh):
+    """A tower and the record cache train in one process
+    (tests/test_torch_tower_cli.py, test_torch_cache.py) and, where this
+    test once found them refused, with a mesh and no process-group flags:
+    one command starts the mesh's ranks (parallel/launch.py) and rank 0
+    alone writes ``-p``, a line per example within 2e-6 of the run in one
+    process, and the record cache, which the run in one process then
+    reads."""
     data = data_file(tmp_path)
-    assert main(MODEL_ARGV + ["--data", str(data), "--fwt_platform", "cpu",
-                              "-p", str(tmp_path / "p.out"), *extra]) == 1
-    assert not (tmp_path / "p.out").exists()
-    assert not (tmp_path / "d.vw.fwcache").exists()
+    common = MODEL_ARGV + ["--data", str(data), "--fwt_platform", "cpu", *extra]
+    assert main(common + mesh + ["-p", str(tmp_path / "mesh.out")]) == 0
+    assert (tmp_path / "d.vw.fwcache").exists() == ("-c" in extra)
+    assert main(common + ["-p", str(tmp_path / "one.out")]) == 0
+    got = np.loadtxt(tmp_path / "mesh.out")
+    assert got.shape == (120,)
+    np.testing.assert_allclose(got, np.loadtxt(tmp_path / "one.out"), rtol=0, atol=2e-6)
 
 
 @pytest.mark.parametrize("path", [["--fwt_superbatch", "2"], ["--fwt_no_native"]],
