@@ -157,14 +157,39 @@ Phases, each raising on failure (exit code 1, and no result line):
    psum, and its explicit four-rank form), b (``--fwt_table_axis 4``, a2a)
    over 7b's 1M-line file and f (Eat-Rate gate 4 on four cards, 10M/10M at
    B=32,768) through the one-command CLI, each against the same CLI on one
-   card within multicard's bounds, each rank's launches read from its
+   card within multicard's bounds, and h (the deployment chain of phase 12
+   with v1 and v2 trained on a 2×2 a2a mesh, each held to one card's, and
+   served by one daemon on card 0), each rank's launches read from its
    counters (a rank process starts with every count at 0) and every kernel
    of its path launched on every rank; on fewer cards one line says that
-   the four-card phase needs four.
+   the four-card phase needs four;
+12. the deployment chain (fwumious_wabbit_tpu_torch/deployment.py) at the
+   full width of the LR+FFM k=8 configuration: v1 trained on the first
+   500,000 lines of 7b's 1M file and v2 on the last 500,000 from ``-i v1
+   --save_resume`` (the default path, the kernels' launches over both);
+   both converted with ``--weight_quantization``, the patcher's diff
+   v1q→v2q and ``recreate``, byte-equal to v2q, with sizes and seconds; a
+   daemon started without ``--foreground`` on v1q (its own double fork,
+   found by its port; on no answer within 60 s the same command runs 30 s
+   with ``--foreground`` and its stderr is printed); a run of 8
+   request/response and 4 pipelined clients with no swap, then the same
+   clients while a swapper alternates ``hogwild_load`` of v1q and the
+   recreated v2q 20 times: every reply well-formed, one per line in order,
+   within 2e-6 of the CPU plain prediction of its line under v1q or v2q
+   (the share of probe lines on which they differ printed); after the last
+   swap 64 replies on a fresh connection within 2e-6 of ``-t -i`` of the
+   recreated v2q on the device engine and the native engine and of the
+   CPU; SIGTERM ends the daemon, which writes its launches (the FFM
+   forward must have launched beyond its warm-up) and the card's bytes
+   allocated in it after each swap (read once no prediction holds an
+   earlier model): those after swap 4 and swap 20 within one model's
+   table bytes, its peak beside three models'.
 
 Each main path (6, the two training paths of 7, each run of 7b, the two
 tower paths of 7c, the 1M run of 7d, both runs of 7e, the three sharded
-runs of 7g and every CLI run of the gates in 10) runs with the
+runs of 7g, every CLI run of the gates in 10, and 12's training pair, its
+daemon — a process that starts with every count at 0 — and its ``-t -i``)
+runs with the
 kernels' launch counters set to 0 just before it and read just after: the
 FFM forward must have launched in serving, all three kernels in each
 training path. Each phase prints its seconds. The dataset's child process
@@ -2125,7 +2150,7 @@ def sharded_phase(data: Path, device) -> dict:
 
 # -- phase 11: the one-command mesh ---------------------------------------------
 
-FOUR_CARD_RUNS = ("a", "b", "f")
+FOUR_CARD_RUNS = ("a", "b", "f", "h")
 
 
 def refusal_check(data: Path, count: int) -> dict:
@@ -2183,6 +2208,24 @@ def four_card_launches(res: dict, kernel: str) -> dict:
             out[key] = {"per_step_rank0": ranks[0]["launches_per_step"][kernel],
                         "per_step_each_rank": [r["launches_per_step"][kernel]
                                                for r in ranks]}
+    return out
+
+
+# -- phase 12: the deployment chain ------------------------------------------------
+
+
+def deployment_phase(big: Path, data: Path, card: str) -> dict:
+    """Phase 12: deployment.run over ``big``, its probe lines from ``data``,
+    its numbers printed beside the card."""
+    import torch
+
+    from fwumious_wabbit_tpu_torch import deployment
+
+    torch.cuda.empty_cache()
+    out = deployment.run(big, data, data.parent / "deployment")
+    print(f"deployment chain on {card}", flush=True)
+    deployment.report(out)
+    print(f"  on {card}", flush=True)
     return out
 
 
@@ -2480,6 +2523,8 @@ def main() -> int:
     with phase("11 one-command mesh"):
         refused = refusal_check(data, torch.cuda.device_count())
         four = four_card_phase(big["path"])
+    with phase("12 deployment chain"):
+        dep = deployment_phase(big["path"], data, card)
     tower_kernels = (trate["profile"]["device_kernels_per_step"]
                      - prof["device_kernels_per_step"])
     print(f"timing: packed tower train steps at full width (K=8, B=1024), per "
@@ -2693,6 +2738,12 @@ def main() -> int:
         row["launcher_refusal"] = refused
         if four is not None:
             row["launches_per_four_card_step"] = four_card_launches(four, row["name"])
+    for row in rows:  # phase 12
+        row["launches_on_the_deployment_chain"] = {
+            "train_v1_v2": dep["train"]["launches"][row["name"]],
+            "daemon": dep["daemon"]["launches"][row["name"]],
+            "testonly": (dep["settle"]["testonly_ffm_launches"]
+                         if row["name"] == "ffm_triangle" else 0)}
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

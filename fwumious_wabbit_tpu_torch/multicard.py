@@ -20,6 +20,9 @@ e    BASELINE config 4's tables: the LR+FFM flags   --fwt_table_axis 4 (a2a)    
      with --ffm_bit_precision 29
 f    Eat-Rate gate 4 (gates.ER_ARGV)                --fwt_data_axis 4 (psum)    10M/10M, 32768
 g    ``-t -i`` of run a's one-card model            --fwt_table_axis 4 (a2a)    1M, 1024
+h    the deployment chain (deployment.py): v1 and   --fwt_data_axis 2           1M split in
+     v2 of the LR+FFM k=8 model trained on the      --fwt_table_axis 2          halves, 1024
+     mesh, exported, patched and served             --fwt_exchange a2a
 ===  =============================================  ==========================  ===========
 
 Checks, each failing the module (exit 1): ``-p`` within 1e-5 per line of
@@ -38,6 +41,17 @@ the user named written by rank 0 alone, and nothing else in the run's
 directory but the ranks' counters; the explicit form's ranks' files
 byte-equal to each other and to the one-command run's; on the card, each
 rank launched every kernel its model's path runs.
+
+Run h is BASELINE config 5 across cards (the JAX test trains it 4×2 on
+eight devices; four cards give 2×2): v1 on the first half of the file and
+v2 on the second from ``-i v1 --save_resume``, each on the mesh and on one
+card, the mesh's within the bounds above of one card's (power_t 0); then
+the mesh's v1 and v2 go through deployment.serve_chain — quantized
+exports, the patcher's diff and ``recreate`` byte-equal, one daemon on
+card 0 (serving is one process per card) detached and soaked under 20 hot
+swaps, every reply within 2e-6 of the CPU's plain prediction under v1q or
+v2q, the settled replies against ``-t -i`` on both engines, and its device
+memory across the swaps.
 
 Numbers per mesh run, each rank's from its FWT_COUNTERS_OUT file: train
 ex/s beside the one-card rate, wall ms per step, the sharded steps'
@@ -106,6 +120,7 @@ class Run:
     # False: held to the one-card run's progressive logloss, its largest
     # differences reported (a LUT rate with steps: module docstring)
     strict: bool = True
+    chain: bool = False  # the deployment chain (run h)
 
 
 def _config4() -> list:
@@ -127,6 +142,8 @@ RUNS = {
     "e": Run("config4", [["--fwt_table_axis", "4"]], 32768, "train"),
     "f": Run("gate4", [["--fwt_data_axis", "4"]], 32768, "gate4"),
     "g": Run("lr_ffm", [["--fwt_table_axis", "4"]], 1024, "train", predict=True),
+    "h": Run("lr_ffm", [["--fwt_data_axis", "2", "--fwt_table_axis", "2",
+                         "--fwt_exchange", "a2a"]], 1024, "train", chain=True),
 }
 
 
@@ -377,9 +394,61 @@ def explicit_form(s: Session, run: Run, tag: str, argv: list, flags: list) -> di
                       for r in range(CARDS)]}
 
 
+def run_chain(s: Session, name: str) -> dict:
+    """Run h: v1 and v2 on the mesh and on one card, each mesh model held to
+    one card's, then the deployment chain of the mesh's two models."""
+    from . import deployment
+
+    run = RUNS[name]
+    flags = run.meshes[0]
+    first, last = deployment.split_halves(s.train)
+    out = {"run": name, "model": run.model, "batch": run.batch, "meshes": []}
+    models = {}
+    try:
+        for version, data in (("v1", first), ("v2", last)):
+            resume = {who: ["-i", str(models[(who, "v1")])] if version == "v2" else []
+                      for who in ("one", "mesh")}
+            d = s.out / f"{name}_one_{version}"
+            ref = s.cli(f"{name}_one_{version}", s.argv(run) + resume["one"] + [
+                "--data", str(data), "-p", str(d / "p.out"), "-f", str(d / "m.fwt"),
+                "--save_resume"])
+            models[("one", version)] = d / "m.fwt"
+            d = s.out / f"{name}_{version}"
+            named = [str(d / "p.out"), str(d / "m.fwt")]
+            res = s.cli(f"{name}_{version}", s.argv(run) + resume["mesh"] + flags + [
+                "--data", str(data), "--save_resume", "-p", named[0], "-f", named[1]])
+            models[("mesh", version)] = d / "m.fwt"
+            what = f"run {name} {version} ({' '.join(flags)})"
+            check_ranks(what, res, run, named, s.cpu)
+            got, want = read_preds(named[0]), read_preds(s.out / f"{name}_one_{version}" / "p.out")
+            require(got.shape == want.shape and np.isfinite(got).all(),
+                    f"{what}: {got.shape} predictions, one card {want.shape}")
+            pred_err = float(np.abs(got - want).max())
+            require(pred_err <= PRED_BOUND,
+                    f"{what}: -p differs from one card by {pred_err} > {PRED_BOUND}")
+            entry = {"model": run.model, "flags": flags + [version], "pred_err": pred_err,
+                     "preds_identical": bool((got == want).all()),
+                     "numbers": numbers(res, ref, run, flags),
+                     "tensor_err": tensor_errors(d / "m.fwt", models[("one", version)])}
+            out["meshes"].append(entry)
+            print(summary(name, entry, s.device), flush=True)
+        argv = s.argv(run)
+        chain = deployment.serve_chain(
+            {"v1": models[("mesh", "v1")], "v2": models[("mesh", "v2")]}, s.train,
+            s.out / f"{name}_chain", s.cpu, deployment.model_table_bytes(argv))
+        deployment.report(chain)
+        out["chain"] = chain
+    finally:
+        for p in (first, last, *models.values()):
+            p.unlink(missing_ok=True)
+    return out
+
+
 def run_one(s: Session, name: str) -> dict:
     """Run ``name``: each mesh command against its one-card run."""
     run = RUNS[name]
+    if run.chain:
+        return run_chain(s, name)
     strict = run.strict
     out = {"run": name, "model": run.model, "batch": run.batch, "meshes": []}
     ref = s.predict_ref(run) if run.predict else s.one_card(run)

@@ -51,6 +51,7 @@ log = get_logger(__name__)
 # set in the environment of each rank this module starts
 LAUNCHED_ENV = "FWT_LAUNCHED"
 TAIL_LINES = 30  # a failed rank's last lines in the error
+FAIL_GRACE_S = 1.0  # after a rank fails, for its peers to exit on their own
 STOP_GRACE_S = 5.0  # SIGTERM, then SIGKILL after this long
 _PKG_PARENT = str(Path(__file__).resolve().parents[2])
 
@@ -168,21 +169,29 @@ def supervise(commands: list, out=None) -> int:
     """Run ``commands`` — ``(argv, env)`` per rank, rank 0 first — and wait
     for all of them, their output passed to the text stream ``out``
     (stderr by default). Returns 0 when every rank exits 0; when one
-    fails, stops the others at once and returns 1 after logging the rank,
-    its exit code and its last lines. No rank outlives the call, whatever
-    ends it (a SIGTERM to this process included, on the main thread)."""
+    fails, stops the others and returns 1 after logging each rank that
+    failed, in rank order, with its exit code and its last lines. A failed
+    rank's peers lose it in a collective and may exit before it does, so
+    the ranks get FAIL_GRACE_S to exit on their own before they are
+    stopped. No rank outlives the call, whatever ends it (a SIGTERM to this
+    process included, on the main thread)."""
     main_thread = threading.current_thread() is threading.main_thread()
     old = signal.signal(signal.SIGTERM, _raise_exit) if main_thread else None
     ranks: list[_Rank] = []
-    failed = None
+    failed: list[_Rank] = []
     try:
         for r, (argv, env) in enumerate(commands):
             ranks.append(_Rank(r, argv, env, own_stdout=r == 0, out=out))
-        while failed is None:
+        while True:
             codes = [rk.proc.poll() for rk in ranks]
-            failed = next((rk for rk, c in zip(ranks, codes) if c not in (None, 0)),
-                          None)
-            if failed is None and all(c == 0 for c in codes):
+            if any(c not in (None, 0) for c in codes):
+                deadline = time.monotonic() + FAIL_GRACE_S
+                while (time.monotonic() < deadline
+                       and any(rk.proc.poll() is None for rk in ranks)):
+                    time.sleep(0.05)
+                failed = [rk for rk in ranks if rk.proc.poll() not in (None, 0)]
+                break
+            if all(c == 0 for c in codes):
                 break
             time.sleep(0.05)
     finally:
@@ -190,12 +199,12 @@ def supervise(commands: list, out=None) -> int:
             rk.stop()
         if main_thread:
             signal.signal(signal.SIGTERM, old)
-    if failed is None:
-        return 0
-    log.error("rank %d of %d exited %s; the other ranks were stopped. Its "
-              "last lines:\n%s", failed.rank, len(ranks), failed.proc.returncode,
-              "".join(failed.tail).rstrip() or "(none)")
-    return 1
+    for rk in failed:
+        rk.pump.join(timeout=2.0)  # its last lines, read to the end
+        log.error("rank %d of %d exited %s; the other ranks were stopped. Its "
+                  "last lines:\n%s", rk.rank, len(ranks), rk.proc.returncode,
+                  "".join(rk.tail).rstrip() or "(none)")
+    return 1 if failed else 0
 
 
 def rank_env(rank: int, counters: str | None = None) -> dict:

@@ -24,6 +24,7 @@ the configuration to SGD — the inference layout.
 
 from __future__ import annotations
 
+import json
 import os
 import struct
 from pathlib import Path
@@ -257,8 +258,34 @@ def load_model(path: str | Path, immutable: bool = False, args=None,
     return mi, vw, model
 
 
-def hogwild_load(path: str | Path, device=None) -> FwModel:
+# the fields of a configuration that fix how a line is translated and
+# where its ids land in the tables; the rest (rates, power_t, the optimizer,
+# the quantization mark) do not change a prediction's layout
+_SERVING_FIELDS = ("bit_precision", "add_constant_feature",
+                   "feature_combo_descs", "ffm_fields", "ffm_k",
+                   "ffm_bit_precision", "nn_config", "transform_namespaces")
+
+
+def serving_layout(mi: ModelInstance, vw: VwNamespaceMap) -> tuple:
+    """What a server built for ``(mi, vw)`` assumes of a model it serves:
+    the namespace map and the configuration's table and translation
+    fields."""
+    d = json.loads(mi.to_json())
+    return (vw.to_source_json(),) + tuple(
+        json.dumps(d[k], sort_keys=True) for k in _SERVING_FIELDS)
+
+
+def hogwild_load(path: str | Path, layout: tuple, device=None) -> FwModel:
     """Load a model file's weights for a hot swap into a running server
-    (reference: src/persistence.rs:176-186): a new immutable model."""
+    (reference: src/persistence.rs:176-186): a new immutable model.
+
+    A file whose :func:`serving_layout` is not ``layout`` (the running
+    model's) raises ValueError before any weight is read: the server's
+    translator would hash into tables of another size (the JAX server
+    swaps such a file in and gathers past its tables)."""
+    mi, vw = read_header(path)
+    if serving_layout(mi, vw) != layout:
+        raise ValueError(f"{path} was written for another configuration "
+                         "than the model being served")
     _mi, _vw, model = load_model(path, immutable=True, device=device)
     return model

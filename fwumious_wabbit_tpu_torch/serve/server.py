@@ -10,17 +10,20 @@ embedded-engine predictor are the port's own copies of the JAX package's
 ``_PooledTCPServer`` of fwumious_wabbit_tpu/serve/server.py), beside the
 port's device predictor. Worker threads share one model; a ``hogwild_load``
 builds a new model and swaps the reference, so in-flight predictions keep
-their snapshot.
+their snapshot. Unlike the JAX server, the device engine refuses a file of
+another configuration (``ERR: hogwild_load fail``) and keeps serving.
 """
 
 from __future__ import annotations
 
 import queue
+import signal
 import socket
 import socketserver
 import threading
 
 import numpy as np
+import torch
 
 from ..ingest import Batcher, TranslatedExample
 from ..ingest.parser import FlushCommand, HogwildLoadCommand, ParseError, VowpalParser
@@ -32,38 +35,81 @@ from ..utils.logging import get_logger
 
 log = get_logger(__name__)
 
+# how long a memory reading waits for the predictions that began before
+# the last swap to return their snapshots
+RELEASE_WAIT_S = 5.0
+
 
 class SharedPredictor:
-    """The device model behind the daemon, hot-swappable."""
+    """The device model behind the daemon, hot-swappable. A swap takes only
+    a file of the served configuration (``model_file.serving_layout`` of
+    ``mi`` and ``vw``): the connections' translators were built for it."""
 
-    def __init__(self, mi, model: FwModel, batch_size: int = 256):
+    def __init__(self, mi, vw, model: FwModel, batch_size: int = 256):
         self.mi = mi
+        self._layout = model_file.serving_layout(mi, vw)
         self._lock = threading.Lock()
+        # predictions in flight by the count of swaps made when each began,
+        # and a condition notified when a count's last one returns
+        self._holding: dict[int, int] = {}
+        self._released = threading.Condition(self._lock)
         self._current = (model, make_predict_step(model))
         self.batcher = Batcher(batch_size)
+        self.swaps = 0
+        # on a card: the bytes allocated once ``swaps`` swaps were made
+        self.resident_bytes: dict[int, int] = {}
 
     @property
     def model(self) -> FwModel:
         return self._current[0]
 
+    def note_resident(self) -> None:
+        """Record the card's allocated bytes under the count of swaps made
+        so far, once no prediction that began before the last swap is in
+        flight: then no snapshot holds an earlier model. Called as a swap
+        starts and as the daemon ends; no reading when such a prediction is
+        still in flight after RELEASE_WAIT_S."""
+        device = self.model.lr_w.device
+        if device.type != "cuda":
+            return
+        with self._released:
+            released = self._released.wait_for(
+                lambda: all(g == self.swaps for g in self._holding), RELEASE_WAIT_S)
+            if released:
+                self.resident_bytes[self.swaps] = torch.cuda.memory_allocated(device)
+
     def hogwild_load(self, path: str) -> None:
-        model = model_file.hogwild_load(path, device=self.model.lr_w.device)
+        self.note_resident()
+        model = model_file.hogwild_load(path, self._layout,
+                                        device=self.model.lr_w.device)
         with self._lock:
             self._current = (model, make_predict_step(model))
+            self.swaps += 1
 
     def predict_examples(self, examples) -> np.ndarray:
         """Predict translated examples of any count, in chunks of
-        ``batch_size`` padded to the full batch."""
-        _model, step = self._current  # snapshot
+        ``batch_size`` padded to the full batch, all by one snapshot of
+        the model."""
         if not examples:
             return np.zeros(0, np.float32)
-        bs = self.batcher.batch_size
-        outs = []
-        for i in range(0, len(examples), bs):
-            chunk = examples[i : i + bs]
-            batch = self.batcher.make_batch(chunk, pad_to_batch=True)
-            outs.append(step(batch_dict(batch)).cpu().numpy()[: len(chunk)])
-        return outs[0] if len(outs) == 1 else np.concatenate(outs)
+        with self._lock:
+            gen, step = self.swaps, self._current[1]  # snapshot
+            self._holding[gen] = self._holding.get(gen, 0) + 1
+        try:
+            bs = self.batcher.batch_size
+            outs = []
+            for i in range(0, len(examples), bs):
+                chunk = examples[i : i + bs]
+                batch = self.batcher.make_batch(chunk, pad_to_batch=True)
+                outs.append(step(batch_dict(batch)).cpu().numpy()[: len(chunk)])
+            return outs[0] if len(outs) == 1 else np.concatenate(outs)
+        finally:
+            del step
+            with self._released:
+                self._holding[gen] -= 1
+                if not self._holding[gen]:
+                    del self._holding[gen]
+                    self._released.notify_all()
 
 
 class NativeSharedPredictor:
@@ -283,6 +329,10 @@ class _PooledTCPServer(socketserver.TCPServer):
             self._queue.put(None)
 
 
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt
+
+
 class Serving:
     """The daemon: N worker threads share one predictor (reference:
     src/serving.rs:184-253; default port 26542, localhost).
@@ -308,7 +358,7 @@ class Serving:
         else:
             if model is None:
                 raise ValueError("the device engine needs a model")
-            self.predictor = SharedPredictor(mi, model)
+            self.predictor = SharedPredictor(mi, vw, model)
             self._warm(mi)
         self._server = None
 
@@ -328,15 +378,21 @@ class Serving:
         self.port = self._server.server_address[1]
 
     def serve(self, host: str = "127.0.0.1") -> None:
+        """Serve until interrupted; on the main thread SIGTERM ends the
+        loop as Ctrl-C does, so the caller's clean-up runs."""
         self._bind(host)
         log.info("serving on %s:%d (%d workers)", host, self.port,
                  self.num_children)
+        main = threading.current_thread() is threading.main_thread()
+        previous = signal.signal(signal.SIGTERM, _interrupt) if main else None
         try:
             self._server.serve_forever()
         except KeyboardInterrupt:
             pass
         finally:
             self._server.server_close()
+            if main:
+                signal.signal(signal.SIGTERM, previous)
 
     def serve_in_background(self, host: str = "127.0.0.1") -> threading.Thread:
         """Serve on a daemon thread (tests and embedders); port 0 picks a

@@ -65,7 +65,10 @@ sparse update kernel always runs).
 writer (default 3); ``FWT_COUNTERS_OUT=<path>`` writes the run's examples,
 elapsed seconds and in-run counters as JSON, with the kernels' launches,
 the files it wrote, the card's peak memory and, under a mesh, the process
-group's set-up seconds and the sharded steps' collective bytes.
+group's set-up seconds and the sharded steps' collective bytes. The
+device-engine daemon writes its launches, its hot swaps, the card's
+allocated bytes after each swap and its peak memory there when SIGTERM (or
+Ctrl-C) ends it.
 """
 
 from __future__ import annotations
@@ -786,7 +789,15 @@ def main(argv=None) -> int:
             return 1
         mi, vw, model = model_file.load_model(
             args.initial_regressor, immutable=True, args=args, device=device)
-        Serving(args, mi, vw, model, model_path=args.initial_regressor).serve()
+        srv = Serving(args, mi, vw, model, model_path=args.initial_regressor)
+        del model  # a hot swap must be able to free the first model
+        srv.serve()
+        if srv.predictor is not None:
+            srv.predictor.note_resident()
+            result = {"hogwild_loads": srv.predictor.swaps,
+                      "resident_bytes_after_swap": srv.predictor.resident_bytes}
+            _add_run_facts(result, srv.predictor.model, None)
+            _write_counters(result)
         return 0
     if launch.requested(args):
         return launch.main(args, list(sys.argv[1:] if argv is None else argv))
@@ -879,6 +890,11 @@ def _train(args, device, mesh, writes: bool = True) -> int:
 
         pmesh.gather_tables(model.params(), mesh, pmesh.table_rows(model))
     _add_run_facts(result, model, mesh)
+    _write_counters(result)
+    return 0
+
+
+def _write_counters(result: dict) -> None:
     cpath = os.environ.get("FWT_COUNTERS_OUT")
     if cpath:
         try:
@@ -886,4 +902,3 @@ def _train(args, device, mesh, writes: bool = True) -> int:
                 json.dump(result, f)
         except OSError as e:
             log.warning("FWT_COUNTERS_OUT write failed: %s", e)
-    return 0

@@ -23,6 +23,7 @@ from fwumious_wabbit_tpu_torch.ingest import cache
 from fwumious_wabbit_tpu_torch.train.loop import main
 
 from test_torch_train_cli import MODEL_ARGV, data_file
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from torch_parity import VW_CSV, jax_native_loaded  # noqa: F401 (autouse fixture)
 
 

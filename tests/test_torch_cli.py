@@ -1,6 +1,7 @@
 """The port's command line (python -m fwumious_wabbit_tpu_torch): ``-t -i``
 predict on the CPU against the JAX package's ``-t -i --fwt_serve_engine
-device``; no silent CPU fallback without a card; unported modes refused."""
+device``; no silent CPU fallback without a card; a process group without
+its coordinator refused, the one-command tower mesh and convert."""
 
 import subprocess
 import sys
@@ -13,6 +14,7 @@ from fwumious_wabbit_tpu.persistence import model_file as jmf
 from fwumious_wabbit_tpu.train.loop import main as jax_main
 from fwumious_wabbit_tpu_torch.train.loop import main
 
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from torch_parity import (  # noqa: F401 (jax_native_loaded: an autouse fixture)
     FFM_ARGV,
     jax_native_loaded,
@@ -81,9 +83,9 @@ def test_second_card_is_refused(tmp_path):
     assert not (tmp_path / "p.out").exists()
 
 
-def test_training_is_not_yet_ported(tmp_path):
-    """The modes this test once found refused are ported. A mesh with no
-    process-group flags now starts its own ranks, one per device
+def test_coordinator_refusal_tower_mesh_and_convert(tmp_path):
+    """A mesh with no process-group flags starts its own ranks, one per
+    device
     (parallel/launch.py): the tower under ``--fwt_table_axis 2`` trains on
     two gloo ranks in one command, and rank 0 alone writes ``-p``, a
     prediction per line within 2e-6 of the same command in one process (a

@@ -224,6 +224,24 @@ def test_a_failing_rank_ends_the_run(tmp_path):
     assert not (tmp_path / "fails" / "m.fwt").exists()
 
 
+def test_a_rank_that_fails_after_its_peer_is_named_first(caplog):
+    """Rank 1 exits at once (as a peer that lost rank 0 in a collective
+    does); rank 0, the cause, exits 0.3 s later: both are named, rank 0
+    first with its own last lines, and the call returns 1."""
+    def rank(code: int, delay: float, said: str):
+        return ([sys.executable, "-c", f"import sys, time; time.sleep({delay}); "
+                 f"print({said!r}, file=sys.stderr); sys.exit({code})"],
+                dict(os.environ))
+
+    with caplog.at_level(logging.ERROR):
+        rc = launch.supervise([rank(3, 0.3, "the cause"), rank(5, 0.0, "a peer")])
+    assert rc == 1
+    said = [r.getMessage() for r in caplog.records if "exited" in r.getMessage()]
+    assert len(said) == 2
+    assert said[0].startswith("rank 0 of 2 exited 3") and "the cause" in said[0]
+    assert said[1].startswith("rank 1 of 2 exited 5") and "a peer" in said[1]
+
+
 # (devices, n_data, n_table): accepted and refused by make_mesh
 COVER_CASES = [(1, None, 1), (4, None, 4), (4, None, 2), (4, None, 1),
                (4, 2, 2), (4, 1, 4), (8, None, 2), (8, 8, 1), (1, None, 4),

@@ -33,6 +33,7 @@ from fwumious_wabbit_tpu.train.loop import main as jax_main
 from fwumious_wabbit_tpu_torch import synthetic
 from fwumious_wabbit_tpu_torch.train.loop import main
 
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from torch_parity import free_port, jax_native_loaded, to_numpy  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]

@@ -14,6 +14,7 @@ from fwumious_wabbit_tpu.train.step import make_predict_step as jax_predict_step
 from fwumious_wabbit_tpu_torch.models import model as pm
 from fwumious_wabbit_tpu_torch.train.step import batch_dict, make_predict_step
 
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from torch_parity import (
     FFM_ARGV,
     batches,

@@ -14,7 +14,8 @@ embedded engine), the weight patcher's C++ tool between two trained model
 files, the sharded step on a gloo group of one rank, and the FFM gate
 (gates.py) over a small dataset; and the one-command launcher
 (parallel/launch.py) and multicard.py, which on a host of fewer than four
-cards exits 1 and says so."""
+cards exits 1 and says so; and deployment.py's soak of a served model hot
+swapped with another under load."""
 
 import subprocess
 import sys
@@ -108,7 +109,7 @@ SCRIPT = textwrap.dedent("""
     assert towered.has_nn and float(towered.layers[0].w_acc.abs().sum()) > 0
     for name in ("tools.weight_patcher", "parallel.distributed",
                  "parallel.mesh", "parallel.sharded", "parallel.launch",
-                 "multicard"):
+                 "multicard", "deployment"):
         assert "fwumious_wabbit_tpu_torch." + name in names, name
     # convert, quantized, and the converted file on the embedded engine
     assert main(["--convert_inference_regressor", tmp + "/q.fwt", "-i",
@@ -154,6 +155,27 @@ SCRIPT = textwrap.dedent("""
     res = gates.run("ffm", cpu=True, work=Path(tmp) / "gates")
     assert res["lines"] == 200 and res["inference_equals_full"] == 200
     assert res["train"]["rows"] == 600 and res["device"] == "cpu"
+    # deployment.py's soak: a served model swapped with another under load
+    from fwumious_wabbit_tpu_torch import deployment
+    from fwumious_wabbit_tpu_torch.serve.server import Serving
+    model.load_params(params_from_numpy(
+        {"lr_w": rng.normal(size=model.lr_size),
+         "ffm_w": rng.normal(scale=0.1, size=model.ffm_size)}, model, "cpu"))
+    save_model(tmp + "/m2.fwt", mi, vw, model)
+    open(tmp + "/pool.vw", "w").write("".join(
+        f"|A a{i} |B b{i % 7} c{i % 3}\\n" for i in range(64)))
+    pool = deployment.probe_pool(Path(tmp) / "pool.vw",
+                                 (Path(tmp) / "m.fwt", Path(tmp) / "m2.fwt"),
+                                 Path(tmp), 64)
+    smi, svw, smodel = load_model(tmp + "/m.fwt", immutable=True, device="cpu")
+    srv = Serving(build_parser().parse_args(["--daemon", "--port", "0"]),
+                  smi, svw, smodel)
+    srv.serve_in_background()
+    out = deployment.soak(srv.port, pool, (Path(tmp) / "m2.fwt",
+                                           Path(tmp) / "m.fwt"),
+                          rr_clients=1, burst_clients=1, n_swaps=2)
+    srv.shutdown()
+    assert out["swaps"] == 2 and out["max_err_to_either_model"] <= 2e-6
     import torch
     from fwumious_wabbit_tpu_torch import multicard
     if torch.cuda.device_count() < multicard.CARDS:

@@ -20,6 +20,7 @@ from fwumious_wabbit_tpu_torch.train import packed as ppacked
 from fwumious_wabbit_tpu_torch.train import producer as pproducer
 from fwumious_wabbit_tpu_torch.train.loop import main
 
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from torch_parity import (  # noqa: F401 (jax_native_loaded: an autouse fixture)
     both_configs,
     eat_rate_stream,

@@ -16,6 +16,7 @@ from fwumious_wabbit_tpu_torch.persistence import model_file as pmf
 from fwumious_wabbit_tpu_torch.train.loop import main
 
 from test_torch_train_cli import MODEL_ARGV, data_file
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from torch_parity import jax_native_loaded, to_numpy  # noqa: F401 (autouse fixture)
 
 

@@ -24,6 +24,7 @@ from fwumious_wabbit_tpu_torch.convert import params_from_numpy
 from fwumious_wabbit_tpu_torch.models.model import FwModel
 from fwumious_wabbit_tpu_torch.train.step import apply_maxnorm, make_train_step
 
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from torch_parity import (
     FFM_ARGV,
     batches,

@@ -14,6 +14,7 @@ from fwumious_wabbit_tpu.persistence import model_file as jmf
 from fwumious_wabbit_tpu.train.loop import main as jax_main
 from fwumious_wabbit_tpu_torch.train.loop import main
 
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from torch_parity import (  # noqa: F401 (jax_native_loaded: an autouse fixture)
     BASE_ARGV,
     FFM_ARGV,

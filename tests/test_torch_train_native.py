@@ -16,6 +16,7 @@ from fwumious_wabbit_tpu_torch import native
 from fwumious_wabbit_tpu_torch.train.loop import main
 
 from test_torch_train_cli import MODEL_ARGV, assert_same_model, data_file
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from torch_parity import (  # noqa: F401 (jax_native_loaded: an autouse fixture)
     eat_rate_stream,
     jax_native_loaded,

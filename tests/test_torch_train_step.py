@@ -17,6 +17,7 @@ from fwumious_wabbit_tpu_torch.models.model import FwModel
 from fwumious_wabbit_tpu_torch.train.loop import np_counts
 from fwumious_wabbit_tpu_torch.train.step import make_train_step
 
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from torch_parity import (
     FFM_ARGV,
     batches,

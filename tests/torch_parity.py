@@ -201,3 +201,20 @@ def jax_native_loaded():
     library, loaded first and under a lock (:func:`require_jax_native`),
     for tests that hold the port to the JAX native path."""
     return require_jax_native()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Autouse in each test file that imports it: one intra-op thread for
+    the port's CPU runs in this process, for the whole module, and the
+    pool's size restored after it. The suite's xdist workers share the
+    host's cores, and torch's OpenMP pool spin-waits at every parallel
+    region: on an 8-core host with six cores kept busy,
+    tests/test_torch_auto_matrix.py took 123 s with the default pool and
+    13.9 s with one thread (11.5 s on an idle host)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
