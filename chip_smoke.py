@@ -20,11 +20,15 @@ Phases, each raising on failure (exit code 1, and no result line):
    the triangle and torch autograd of it — at KERNEL_SHAPES and BWD_SHAPES:
    F=2 k=8 over a table of the main path's full width, the others over
    2^16-float tables, one-row slabs and F=40 k=8's three-row slabs, both
-   padding forms, duplicate ids, 16-byte and 4-byte loads, and the FFM
-   gate's F=2 k=10 N=2 B=256 over its own table's width (the shared-memory
-   path, 4-byte loads whatever the alignment); tolerance
+   padding forms, duplicate ids, 16-byte and 4-byte slab copies, the FFM
+   gate's F=2 k=10 N=2 B=256 over its own table's width, and BASELINE
+   config 4's B=32,768 (N=4) over the full-width table; tolerance
    max|kernel−plain| ≤ 1e-5·(1+max|plain|) in f32 with TF32 off, padded
-   positions of the gradient exactly 0, reruns bit-identical;
+   positions of the gradient exactly 0, reruns bit-identical; and every
+   example's triangle and gradient bit-identical alone, in its batch and in
+   a permuted batch (tiles of 32 examples all full, the same with a last
+   tile of 17, the FFM gate's tiles of 25 with a last tile of 7, F=40's
+   example in chunks; each case's tiles checked first);
 5. the sparse AdaGrad update kernel against the plain version
    (ops/adagrad.apply_rows_plain) on the card: LUT, flex and SGD; power_t
    0, 0.5 and 0.25; uniform and duplicate-heavy ids; empty stretches between
@@ -127,12 +131,16 @@ Phases, each raising on failure (exit code 1, and no result line):
    within 1e-6, every table and tower tensor within 1e-5·(1+max|·|), with
    whether they are bit-identical, the kernels' launches per step and the
    wall time per step beside the plain step's;
-8. the fused FFM kernels at the main path's inputs (the serving model's
-   table, the data's first 256 and 1024 lines as the CLI batches them):
-   wall time per call from CUDA events and device time per call from
-   torch.profiler, for the forward at B=256 and B=1024 and the backward at
-   B=1024, beside their plain versions and tables.gather alone, with each
-   call's bound (the bytes its inputs need at 3.35 TB/s);
+8. the fused FFM kernels, forward and backward, at the main path's four
+   shapes: serving (the serving model's table, the data's first 256 lines
+   as the daemon batches them, N=8), the default step (one packed step's
+   own inputs, phase 7b), B=32,768 (the 1M file's first 32,768 lines as
+   the C++ ingest batches them, the full-width table) and the FFM gate's
+   (F=2 k=10 N=2 B=256 over its table's width): device time per call from
+   torch.profiler, each window also launching an empty kernel at the same
+   grid, block and shared memory after every call (the launch floor), wall
+   time from CUDA events, the bound (the bytes its inputs need at 3.35
+   TB/s) and the share of it, the plain version once;
 9. a layer breakdown of the serving path (with the device kernels per
    256-line batch) and of one full-width train step (with the kernels'
    launches per step);
@@ -194,7 +202,10 @@ kernels' launch counters set to 0 just before it and read just after: the
 FFM forward must have launched in serving, all three kernels in each
 training path. Each phase prints its seconds. The dataset's child process
 is ended before the script exits, whatever the outcome. The script prints the kernel table as JSON
-(each kernel's launches, error, times, bound, launches per serving batch;
+(each kernel's launches, error, times, bound — the FFM forward's at the
+serving shape, the backward's at the default step — launches per serving
+batch; the FFM pair's device µs, wall µs, launch floor, bound and share of
+it at each of phase 8's four shapes, ``shapes``;
 per train step from the 10k --fwt_no_native run and per packed train
 step from the first 1M default run, both main paths; its launches on the
 10k default path; and its error, times, bytes and bound at the default
@@ -221,15 +232,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 20261016
-# the FFM gate's F, k, N, B (gates.py): F·F·k = 40 floats per example take
-# the kernels' shared-memory path, with 4-byte loads (k % 4 != 0)
+# the FFM gate's F, k, N, B (gates.py): k=10, 80-byte slabs
 GATE_SHAPE = (2, 10, 2, 256)
 KERNEL_SHAPES = [(2, 8, 8, 256), (4, 4, 6, 8), (16, 8, 12, 16), (3, 2, 5, 4),
                  GATE_SHAPE]
 REPLY_ATOL = 2e-6  # tests/test_serving.py:176
 # the FFM backward's shapes: the forward's, the training shape, and a model
-# whose contra tensor needs more than 48 KB of shared memory
+# whose contra tensor needs more than 48 KB of shared memory (one example a
+# tile, streamed in four chunks)
 BWD_SHAPES = KERNEL_SHAPES + [(2, 8, 8, 1024), (40, 8, 48, 8)]
+# BASELINE config 4's batch at the default path's F=2, k=8, N=4
+BIG_SHAPE = (2, 8, 4, 32768)
 TRAIN_BATCH = 1024
 TRAIN_ATOL = 1e-5  # card vs CPU: f32 sums in other orders (PERF.md)
 # one unit of the -p file's sixth decimal, and the float error of reading it
@@ -425,7 +438,7 @@ def kernel_phase(device, ffm_sizes: dict) -> dict:
     from fwumious_wabbit_tpu_torch.ops import ffm
 
     worst = {"fwd": 0.0, "bwd": 0.0}
-    for F, k, N, B in BWD_SHAPES:
+    for F, k, N, B in BWD_SHAPES + [BIG_SHAPE]:
         logical = ffm_sizes.get((F, k), 1 << 16)
         errs = {"fwd": 0.0, "bwd": 0.0}
         for padding in ("minus1", "val0"):
@@ -465,8 +478,61 @@ def kernel_phase(device, ffm_sizes: dict) -> dict:
               f"{errs['bwd']!r} (bound 1e-5·(1+max|plain|)); reruns "
               f"bit-identical", flush=True)
         worst = {key: max(worst[key], errs[key]) for key in worst}
+    batch_invariance_check(device, ffm_sizes)
     torch.cuda.empty_cache()
     return worst
+
+
+def invariance_shapes(sms: int) -> dict:
+    """The batch-invariance cases at a card's SM count, ``name: (F, k, N,
+    B)``: tiles of ffm.MAX_TILE examples, all full (B = 32·SMs); the same
+    tiles with a ragged last one (17 of 32); the FFM gate's k=10 with a
+    ragged last tile of 7 of 25; F=40's example streamed in chunks."""
+    return {"full_tile": (2, 8, 4, 32 * sms), "ragged_tile": (2, 8, 4, 32 * sms + 17),
+            "ffm_gate": (2, 10, 2, 25 * sms + 7), "chunked": (40, 8, 48, 64)}
+
+
+def batch_invariance_check(device, ffm_sizes: dict) -> None:
+    """Each example's triangle and gradient the same bits alone (a batch of
+    one), in its batch and in a permuted batch, for both kernels, at every
+    case of :func:`invariance_shapes`, whose tiles it checks first."""
+    import numpy as np
+    import torch
+
+    from fwumious_wabbit_tpu_torch.ops import ffm
+
+    for name, (F, k, N, B) in invariance_shapes(ffm.sm_count(device.index or 0)).items():
+        table, ids, vals, fields, spec = kernel_inputs(
+            F, k, N, B, device, "minus1", True, ffm_sizes.get((F, k), 1 << 16))
+        geo = ffm.launch_geometry(table, B, N, F, k, False)
+        what = f"{name} F={F} k={k} N={N} B={B} (tile {geo.tile})"
+        check({"full_tile": geo.tile == ffm.MAX_TILE and B % geo.tile == 0,
+               "ragged_tile": geo.tile == ffm.MAX_TILE and B % geo.tile == 17,
+               "ffm_gate": geo.tile == 25 and B % geo.tile == 7,
+               "chunked": geo.chunk < geo.tile * N}[name],
+              f"the batch-invariance case {what} does not have its tiles")
+        rest = (ids, vals, fields)
+        g = torch.from_numpy(np.random.default_rng(SEED + B).normal(
+            size=(B, F * (F + 1) // 2)).astype(np.float32)).to(device)
+        fwd = ffm.ffm_fused(table, *rest, F, k, spec)
+        bwd = ffm.ffm_fused_bwd(g, table, *rest, F, k, spec)
+        perm = torch.from_numpy(np.random.default_rng(SEED).permutation(B)).to(device)
+        p_rest = [a[perm].contiguous() for a in rest]
+        check(torch.equal(ffm.ffm_fused(table, *p_rest, F, k, spec), fwd[perm]),
+              f"the fused forward's outputs change with the batch's order at {what}")
+        check(torch.equal(ffm.ffm_fused_bwd(g[perm].contiguous(), table, *p_rest,
+                                            F, k, spec), bwd[perm]),
+              f"the fused backward's outputs change with the batch's order at {what}")
+        for b in (0, 1, B // 2, B - 9, B - 1):
+            one = [a[b:b + 1].contiguous() for a in rest]
+            check(torch.equal(ffm.ffm_fused(table, *one, F, k, spec), fwd[b:b + 1])
+                  and torch.equal(ffm.ffm_fused_bwd(g[b:b + 1].contiguous(), table,
+                                                    *one, F, k, spec), bwd[b:b + 1]),
+                  f"example {b} alone differs from itself in its batch at {what}")
+        del table
+        print(f"kernel ffm_fused: every example's triangle and gradient "
+              f"bit-identical alone, in its batch and in a permuted batch at "
+              f"{what}", flush=True)
 
 
 H100_BYTES_S = 3.35e12  # H100 SXM HBM3 (NVIDIA's data sheet)
@@ -507,63 +573,142 @@ def ffm_work(ids, vals, fields, F, k, spec, backward: bool) -> dict:
     return bound(nbytes, ops)
 
 
-def ffm_timing(path: Path, data: Path, device) -> dict:
-    """The fused kernels at the main path's inputs: the serving model's
-    full-width FFM table and the first 256 and 1024 lines of the data as the
-    CLI batches them. Per call, wall time from CUDA events (plain, kernel,
-    kernel, plain) and device time from torch.profiler, for the fused
-    forward at B=256 and B=1024 and the fused backward at B=1024; beside
-    them tables.gather alone at the same inputs (the first half of the plain
-    version, which the unfused kernels needed before them)."""
+def ffm_shapes(path: Path, data: Path, big: Path, default_step: tuple,
+               gate_size: int, device) -> dict:
+    """The fused kernels' inputs ``(table, ids, vals, fields, F, k, spec)``
+    at the main path's four shapes: ``serving``, the serving model's
+    full-width table and the data's first 256 lines as the daemon batches
+    them (the Python Batcher, N=8); ``default_step``, one packed default
+    step's own inputs on its model (phase 7b, N=4); ``b32768``, the first
+    32,768 lines of the 1M file as the default path batches them (the C++
+    ingest, widths of at least 4) on the serving model's table; ``ffm_gate``,
+    F=2 k=10 N=2 B=256 over a table of the FFM gate's width."""
     import numpy as np
     import torch
 
+    from fwumious_wabbit_tpu_torch import native
     from fwumious_wabbit_tpu_torch.ingest import Batcher, FeatureTranslator, VowpalParser
-    from fwumious_wabbit_tpu_torch.ops import ffm, tables
     from fwumious_wabbit_tpu_torch.persistence.model_file import load_model
 
     mi, vw, model = load_model(path, immutable=True, device=device)
+    table, spec, F, k = model.ffm_w, model.ffm_spec, model.num_fields, model.ffm_k
     parser, ft = VowpalParser(vw), FeatureTranslator(mi)
     tes = [ft.translate(parser.parse_line(line))
-           for line in data.read_bytes().splitlines(True)[:TRAIN_BATCH]]
-    table, spec, F, k = model.ffm_w, model.ffm_spec, model.num_fields, model.ffm_k
+           for line in data.read_bytes().splitlines(True)[:256]]
+    b = Batcher(256).make_batch(tes, pad_to_batch=True)
+
+    def on_card(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in arrays)
+
+    shapes = {"serving": (table, *on_card(b.ffm_ids.astype(np.int32), b.ffm_vals,
+                                          b.ffm_fields.astype(np.int32)), F, k, spec),
+              "default_step": default_step}
+    B = BIG_SHAPE[3]
+    with open(big, "rb") as fh:
+        text = b"".join(fh.readline() for _ in range(B))
+    ni = native.NativeIngest(mi, vw)
+    check(ni.translate_block(text) == B, f"the C++ ingest did not give {B} examples")
+    L, N = (max(4, w) for w in ni.widths())
+    bd = ni.fill_range(0, B, B, L, N)
+    shapes["b32768"] = (table, *on_card(bd["ffm_ids"], bd["ffm_vals"],
+                                        bd["ffm_fields"].astype(np.int32)), F, k, spec)
+    gt, *rest, gspec = kernel_inputs(*GATE_SHAPE, device, "minus1", True, gate_size)
+    shapes["ffm_gate"] = (gt, *rest, GATE_SHAPE[0], GATE_SHAPE[1], gspec)
+    return shapes
+
+
+def empty_launch(args: tuple, backward: bool):
+    """A call that launches the empty kernel at the fused kernel's grid,
+    block and shared memory for these inputs: the launch floor."""
+    import torch
+
+    from fwumious_wabbit_tpu_torch.ops import ffm
+    from fwumious_wabbit_tpu_torch.ops.kernels import build
+
+    table, ids, _, _, F, k, _ = args
+    geo = ffm.launch_geometry(table, *ids.shape, F, k, backward)
+    grid = geo.tiles(ids.shape[0])
+    lib = build.load("ffm_triangle")
+
+    def call():
+        build.check(lib, lib.fwt_ffm_empty(grid, geo.smem,
+                                           torch.cuda.current_stream().cuda_stream),
+                    "the empty kernel")
+    return call
+
+
+def split_device_us(call, what: str, reps: int = 50) -> tuple:
+    """``(kernel µs, empty kernel µs)`` per call from one torch.profiler
+    window of ``call``, which launches a kernel and then the empty kernel."""
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            call()
+
+    rows, _ = device_rows(run, what)
+    empty = sum(dt for key, dt, _ in rows if "ffm_empty_kernel" in key)
+    total = sum(dt for _, dt, _ in rows)
+    return (total - empty) / reps, empty / reps
+
+
+def ffm_timing(shapes: dict, device) -> dict:
+    """The fused kernels at the main path's four shapes (:func:`ffm_shapes`).
+    Each direction first against plain, then timed twice: device µs per
+    call from torch.profiler, each
+    window also launching the empty kernel at the same grid, block and
+    shared memory after every call (the launch floor), and wall µs per call
+    from CUDA events; the plain version once; the bound (:func:`ffm_work`)
+    and the share of it the best device time reaches."""
+    import numpy as np
+    import torch
+
+    from fwumious_wabbit_tpu_torch.ops import ffm
+
     out = {}
-    for B in (256, TRAIN_BATCH):
-        b = Batcher(B).make_batch(tes[:B], pad_to_batch=True)
-        ids, vals, fields = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                             for a in (b.ffm_ids.astype(np.int32), b.ffm_vals,
-                                       b.ffm_fields.astype(np.int32)))
-        args = (table, ids, vals, fields, F, k, spec)
-        ok, _, _ = agrees(ffm.ffm_fused(*args), ffm.ffm_fused_reference(*args))
-        check(ok, f"fused forward disagrees with plain at the main path's B={B}")
-        calls = {"fwd": lambda: ffm.ffm_fused(*args),
-                 "fwd_plain": lambda: ffm.ffm_fused_reference(*args),
-                 "gather": lambda: tables.gather(table, ids, spec)}
-        if B == TRAIN_BATCH:
-            g = torch.from_numpy(np.random.default_rng(SEED).normal(
-                size=(B, F * (F + 1) // 2)).astype(np.float32)).to(device)
-            ok, _, _ = agrees(ffm.ffm_fused_bwd(g, *args),
-                                 ffm.ffm_fused_bwd_reference(g, *args))
-            check(ok, f"fused backward disagrees with plain at the main path's B={B}")
-            calls["bwd"] = lambda: ffm.ffm_fused_bwd(g, *args)
-            calls["bwd_plain"] = lambda: ffm.ffm_fused_bwd_reference(g, *args)
-        wall = {name: [] for name in calls}
-        for order in ("plain", "kernel", "kernel", "plain"):
-            for name, call in calls.items():
-                if ("plain" in name) == (order == "plain"):
-                    wall[name].append(time_ms(call, reps=100 if "plain" in name else 1000))
-        res = {"N": int(ids.shape[1]),
-               "wall_us": {name: min(v) * 1e3 for name, v in wall.items()},
-               "device": {name: device_us(call, f"{name} at B={B}")
-                          for name, call in calls.items()},
-               "fwd_bound": ffm_work(ids, vals, fields, F, k, spec, False)}
-        if B == TRAIN_BATCH:
-            res["bwd_bound"] = ffm_work(ids, vals, fields, F, k, spec, True)
-        out[B] = res
-        print(f"timing: ffm_fused at the main path's B={B} N={res['N']} F={F} "
-              f"k={k}: " + json.dumps(res), flush=True)
-    del model
-    torch.cuda.empty_cache()
+    for name, args in shapes.items():
+        table, ids, vals, fields, F, k, spec = args
+        B, N = ids.shape
+        g = torch.from_numpy(np.random.default_rng(SEED).normal(
+            size=(B, F * (F + 1) // 2)).astype(np.float32)).to(device)
+        res = {"B": int(B), "N": int(N), "F": F, "k": k}
+        for direction in ("fwd", "bwd"):
+            bwd = direction == "bwd"
+            kernel = ((lambda: ffm.ffm_fused_bwd(g, *args)) if bwd
+                      else (lambda: ffm.ffm_fused(*args)))
+            plain = ((lambda: ffm.ffm_fused_bwd_reference(g, *args)) if bwd
+                     else (lambda: ffm.ffm_fused_reference(*args)))
+            ok, err, limit = agrees(kernel(), plain())
+            check(ok, f"fused {direction} disagrees with plain at {name}: "
+                      f"{err} > {limit}")
+            floor = empty_launch(args, bwd)
+
+            def both():
+                kernel()
+                floor()
+            r = {"device_us": [], "floor_us": [], "wall_us": []}
+            for _ in range(2):
+                dev, fl = split_device_us(both, f"{direction} at {name}")
+                r["device_us"].append(dev)
+                r["floor_us"].append(fl)
+                r["wall_us"].append(time_ms(kernel, reps=1000 if B <= 1024
+                                            else 200) * 1e3)
+            work = ffm_work(ids, vals, fields, F, k, spec, bwd)
+            r["bound_us"] = work["bound_ms"] * 1e3
+            r["bytes"] = work["bytes"]
+            r["bound_by"] = work["bound_by"]
+            r["share"] = r["bound_us"] / min(r["device_us"])
+            r["plain_wall_us"] = time_ms(plain, reps=20 if B > 1024 else 100) * 1e3
+            r["plain_device_us"] = device_us(plain, f"plain {direction} at {name}",
+                                             reps=10)["device_us"]
+            res[direction] = r
+        out[name] = res
+        print(f"timing: fused FFM kernels at {name} (B={B} N={N} F={F} k={k}), "
+              f"per call: " + json.dumps(res), flush=True)
     return out
 
 
@@ -1677,6 +1822,7 @@ def ffm_step_check(model, bd: dict, what: str) -> dict:
                      "work": ffm_work(ids, vals, fields, F, k, spec, name == "bwd")}
     print(f"kernel ffm_fused at {what} (B={B} N={N} F={F} k={k}, the model's "
           f"own table): " + json.dumps(out), flush=True)
+    out["inputs"] = args  # phase 8 times the kernels again at these inputs
     return out
 
 
@@ -2426,6 +2572,23 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, work,
             **tower}
 
 
+def timed_at(r: dict) -> tuple:
+    """``(ms, plain_ms, work, device_us)`` of a kernel row from one shape of
+    :func:`ffm_timing`: the best of the repeats."""
+    work = {"bound_ms": r["bound_us"] / 1e3, "bound_by": r["bound_by"],
+            "bytes": r["bytes"]}
+    return (min(r["wall_us"]) / 1e3, r["plain_wall_us"] / 1e3, work,
+            min(r["device_us"]))
+
+
+def shape_row(r: dict) -> dict:
+    """One shape of :func:`ffm_timing` in the kernels line."""
+    return {"device_us": min(r["device_us"]), "wall_us": min(r["wall_us"]),
+            "launch_floor_us": min(r["floor_us"]), "bound_us": r["bound_us"],
+            "bytes": r["bytes"], "share_of_bound": r["share"],
+            "plain_device_us": r["plain_device_us"]}
+
+
 def main() -> int:
     import torch
 
@@ -2542,26 +2705,18 @@ def main() -> int:
     print(f"  on {card}", flush=True)
 
     t0 = time.perf_counter()
-    timing = ffm_timing(paths[0], data, device)
-    fwd256, t1024 = timing[256], timing[TRAIN_BATCH]
-    for B, res in timing.items():
-        w, d = res["wall_us"], res["device"]
-        line = (f"timing: at the main path's B={B} N={res['N']} F=2 k=8, per "
-                f"call: fused forward {w['fwd']:.2f} us wall, "
-                f"{d['fwd']['device_us']:.3f} us device (bound "
-                f"{res['fwd_bound']['bound_ms'] * 1e3:.4f} us); plain (gather "
-                f"+ triangle) {w['fwd_plain']:.2f} us wall, "
-                f"{d['fwd_plain']['device_us']:.3f} us device in "
-                f"{d['fwd_plain']['kernels_per_call']:.0f} kernels; "
-                f"tables.gather alone {w['gather']:.2f} us wall, "
-                f"{d['gather']['device_us']:.3f} us device in "
-                f"{d['gather']['kernels_per_call']:.0f} kernels")
-        if "bwd" in w:
-            line += (f"; fused backward {w['bwd']:.2f} us wall, "
-                     f"{d['bwd']['device_us']:.3f} us device (bound "
-                     f"{res['bwd_bound']['bound_ms'] * 1e3:.4f} us); plain "
-                     f"backward {w['bwd_plain']:.2f} us wall, "
-                     f"{d['bwd_plain']['device_us']:.3f} us device")
+    timing = ffm_timing(ffm_shapes(paths[0], data, big["path"], nkern["ffm"].pop("inputs"),
+                                   gate_mi.ffm_weights_len, device), device)
+    for name, res in timing.items():
+        line = f"timing: at {name} (B={res['B']} N={res['N']} F={res['F']} k={res['k']}), per call"
+        for direction in ("fwd", "bwd"):
+            r = res[direction]
+            line += (f"; fused {direction} {min(r['device_us']):.3f} us device "
+                     f"(repeats {r['device_us']}), "
+                     f"{min(r['wall_us']):.2f} us wall, launch floor "
+                     f"{min(r['floor_us']):.3f} us, bound {r['bound_us']:.4f} us "
+                     f"({r['bytes']} bytes), {r['share']:.4f} of it; plain "
+                     f"{r['plain_wall_us']:.2f} us wall, {r['plain_device_us']:.3f} us device")
         print(line, flush=True)
         print(f"  on {card}", flush=True)
     print(f"timing: daemon request/response p50 {srv['p50_us']:.1f} us, p99 "
@@ -2694,9 +2849,7 @@ def main() -> int:
                    "fwumious_wabbit_tpu/ops/pallas/ffm.py:131 (with the slab "
                    "gather of ops/tables.py)", launches,
                    max(kern["fwd"], nat_fwd["max_abs_err"]),
-                   fwd256["wall_us"]["fwd"] / 1e3,
-                   fwd256["wall_us"]["fwd_plain"] / 1e3, fwd256["fwd_bound"],
-                   fwd256["device"]["fwd"]["device_us"],
+                   *timed_at(timing["serving"]["fwd"]),
                    layers["ffm_fused_launches_per_batch"],
                    per_step["ffm_triangle"], packed_step["ffm_triangle"],
                    nat_launches["ffm_triangle"], nat_fwd, tower("ffm_triangle")),
@@ -2704,9 +2857,7 @@ def main() -> int:
                    "jax.vjp of models/model.py:418-443 (no Pallas kernel)",
                    trn["launches"]["ffm_triangle_bwd"],
                    max(kern["bwd"], nat_bwd["max_abs_err"]),
-                   t1024["wall_us"]["bwd"] / 1e3,
-                   t1024["wall_us"]["bwd_plain"] / 1e3, t1024["bwd_bound"],
-                   t1024["device"]["bwd"]["device_us"], 0,
+                   *timed_at(timing["default_step"]["bwd"]), 0,
                    per_step["ffm_triangle_bwd"], packed_step["ffm_triangle_bwd"],
                    nat_launches["ffm_triangle_bwd"], nat_bwd,
                    {**tower("ffm_triangle_bwd"),
@@ -2721,6 +2872,8 @@ def main() -> int:
                    packed_step["sparse_adagrad_update"],
                    nat_launches["sparse_adagrad_update"], nat_upd,
                    tower("sparse_adagrad_update"))]
+    for row, direction in zip(rows, ("fwd", "bwd")):  # phase 8's four shapes
+        row["shapes"] = {name: shape_row(res[direction]) for name, res in timing.items()}
     for row in rows:  # launches on phase 10's gate paths
         row["launches_on_the_gate_paths"] = {
             gate: {run: v[row["name"]] for run, v in gts[gate]["launches"].items()

@@ -28,7 +28,9 @@ it, and the slabs themselves are never materialized on the card.
 
 from __future__ import annotations
 
+import functools
 import threading
+from dataclasses import dataclass
 
 import torch
 
@@ -170,18 +172,112 @@ def ffm_fused_bwd_reference(g_out: torch.Tensor, table: torch.Tensor,
                                       vals, fields, F, k)
 
 
-def shared_memory_bytes(F: int, k: int, backward: bool = False) -> int:
-    """Dynamic shared memory a block of the forward (C and F self terms) or
-    of the backward (C and the F×F upstream gradient) needs on the kernels'
-    shared-memory path; raises ValueError above the card's per-block
-    limit."""
-    smem = (F * F * k + (F * F if backward else F)) * 4
-    if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"F={F}, k={k} needs {smem} bytes of shared memory per example in "
-            f"the FFM {'backward' if backward else 'forward'} kernel; the "
-            f"limit is {SMEM_LIMIT_BYTES} bytes (227 KB)")
-    return smem
+# the kernels' launch geometry (csrc/ffm_triangle.cu): threads per block,
+# index and slab ring stages, the contra floats a tile aims at, the most
+# examples per tile, and the slab bytes one ring stage aims at
+THREADS = 256
+IDX_STAGES = 4
+SLAB_STAGES = 3
+TILE_FLOATS = 1024
+MAX_TILE = 32
+STAGE_BYTES = 16384
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def smem_words(backward: bool, F: int, k: int, tile: int, chunk: int,
+               staged: bool) -> int:
+    """4-byte words of shared memory one block of the forward or the
+    backward kernel uses (the kernel's ``layout``): C ``[tile, F, F, k]``;
+    IDX_STAGES stages of a chunk's
+    ids, values and fields, each with 4 words of slack; staged backward,
+    IDX_STAGES stages of the tile's g_out rows; staged, SLAB_STAGES ring
+    stages of the chunk's slabs, each padded to 16 bytes."""
+    T = F * (F + 1) // 2
+    words = _round4(tile * F * F * k)
+    words += IDX_STAGES * 3 * _round4(chunk + 4)
+    if staged:
+        if backward:
+            words += IDX_STAGES * _round4(tile * T + 4)
+        words += SLAB_STAGES * chunk * _round4(F * k)
+    return words
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """One launch of an FFM kernel: ``tile`` examples per tile, ``chunk``
+    positions per ring stage (a whole tile's, or part of one example's
+    when its slabs outgrow a stage), ``staged`` whether slabs (and g_out)
+    go through shared memory, ``vec`` floats per slab copy, ``smem`` bytes
+    of shared memory per block."""
+    tile: int
+    chunk: int
+    staged: bool
+    vec: int
+    smem: int
+
+    def tiles(self, B: int) -> int:
+        return -(-B // self.tile)
+
+
+@functools.lru_cache(maxsize=512)
+def geometry(F: int, k: int, N: int, backward: bool = False,
+             table_align: int = 16, B: int | None = None,
+             sms: int | None = None) -> Geometry:
+    """The kernels' geometry at (F, k, N). A tile holds about TILE_FLOATS
+    contra floats (TILE_FLOATS // (F·F·k) examples, 1 to MAX_TILE); given
+    the batch ``B`` and the card's ``sms``, no more than B / sms examples,
+    so that a small batch still spreads over every SM; and no more slabs
+    than one STAGE_BYTES ring stage. Where one example's slabs outgrow a
+    stage, a tile is one example streamed in chunks. Slab copies are 16
+    bytes where F·k % 4 == 0 and the table (``table_align`` bytes) allows,
+    else 8 or 4. Where the ring does not fit beside C under the card's
+    227 KB, slabs and g_out are read from global memory instead. Raises
+    ValueError where even C and the index stages do not fit."""
+    Fk = F * k
+    slab = _round4(Fk) * 4
+    tile = max(1, min(MAX_TILE, TILE_FLOATS // (F * Fk)))
+    if B is not None and sms:
+        tile = min(tile, max(1, -(-B // sms)))
+    tile = max(1, min(tile, STAGE_BYTES // max(1, N * slab)))
+    chunk = (max(1, tile * N) if tile * N * slab <= STAGE_BYTES
+             else max(1, STAGE_BYTES // slab))
+    if table_align % 16 == 0 and Fk % 4 == 0:
+        vec = 4
+    elif table_align % 8 == 0 and Fk % 2 == 0:
+        vec = 2
+    else:
+        vec = 1
+    for staged in (True, False):
+        smem = 4 * smem_words(backward, F, k, tile, chunk, staged)
+        if smem <= SMEM_LIMIT_BYTES:
+            return Geometry(tile, chunk, staged, vec, smem)
+    raise ValueError(
+        f"F={F}, k={k} needs {smem} bytes of shared memory per block in the "
+        f"FFM {'backward' if backward else 'forward'} kernel; the limit is "
+        f"{SMEM_LIMIT_BYTES} bytes (227 KB)")
+
+
+def table_alignment(table: torch.Tensor) -> int:
+    """The largest of 16, 8 and 4 bytes that the table's address is a
+    multiple of."""
+    p = table.data_ptr()
+    return 16 if p % 16 == 0 else 8 if p % 8 == 0 else 4
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch_geometry(table: torch.Tensor, B: int, N: int, F: int, k: int,
+                    backward: bool) -> Geometry:
+    """The geometry of one launch on ``table``'s card; the kernel launches
+    one block per tile (``geo.tiles(B)``)."""
+    return geometry(F, k, N, backward, table_alignment(table), B,
+                    sm_count(table.device.index))
 
 
 def slab_mask(spec: tables.TableSpec) -> int:
@@ -191,7 +287,7 @@ def slab_mask(spec: tables.TableSpec) -> int:
     return ~(spec.align - 1) if spec.rows_per_slab == 1 else ~(tables.LANE - 1)
 
 
-def _check(table, ids, vals, fields, F, k, spec, backward: bool) -> None:
+def _check(table, ids, vals, fields, F, k, spec, backward: bool) -> Geometry:
     if spec.slab != F * k:
         raise ValueError(f"the table's slab is {spec.slab} floats, not F*k={F * k}")
     if table.dim() != 2 or tuple(table.shape) != (spec.num_rows, tables.LANE):
@@ -210,10 +306,17 @@ def _check(table, ids, vals, fields, F, k, spec, backward: bool) -> None:
         raise ValueError("table, ids, vals and fields must be on one device")
     if not all(t.is_contiguous() for t in (table, ids, vals, fields)):
         raise ValueError("table, ids, vals and fields must be contiguous")
-    shared_memory_bytes(F, k, backward)
     if table.device.index != torch.cuda.current_device():
         raise ValueError(f"the FFM kernels launch on the current device "
                          f"cuda:{torch.cuda.current_device()}, not {table.device}")
+    return launch_geometry(table, *ids.shape, F, k, backward)
+
+
+def _launch_args(geo: Geometry, table: torch.Tensor) -> tuple:
+    """The launchers' trailing arguments: the geometry and the current
+    stream."""
+    return (geo.tile, geo.chunk, int(geo.staged), geo.vec, geo.smem,
+            torch.cuda.current_stream(table.device).cuda_stream)
 
 
 def _on_cuda(table: torch.Tensor, what: str) -> bool:
@@ -233,7 +336,7 @@ def ffm_fused(table: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor,
     ``[B, F(F+1)/2]`` f32."""
     if not _on_cuda(table, "ffm_fused"):
         return ffm_fused_reference(table, ids, vals, fields, F, k, spec)
-    _check(table, ids, vals, fields, F, k, spec, backward=False)
+    geo = _check(table, ids, vals, fields, F, k, spec, backward=False)
     global LAUNCHES
     B, N = ids.shape
     out = torch.empty((B, F * (F + 1) // 2), dtype=torch.float32,
@@ -241,11 +344,9 @@ def ffm_fused(table: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor,
     if B == 0:
         return out
     lib = build.load("ffm_triangle")
-    stream = torch.cuda.current_stream(table.device).cuda_stream
     rc = lib.fwt_ffm_fused(table.data_ptr(), ids.data_ptr(), vals.data_ptr(),
                            fields.data_ptr(), out.data_ptr(), B, N, F, k,
-                           slab_mask(spec), int(table.data_ptr() % 16 == 0),
-                           stream)
+                           slab_mask(spec), *_launch_args(geo, table))
     build.check(lib, rc, "ffm_fused")
     with _count_lock:
         LAUNCHES += 1
@@ -261,7 +362,7 @@ def ffm_fused_bwd(g_out: torch.Tensor, table: torch.Tensor, ids: torch.Tensor,
     if not _on_cuda(table, "ffm_fused_bwd"):
         return ffm_fused_bwd_reference(g_out, table, ids, vals, fields, F, k,
                                        spec)
-    _check(table, ids, vals, fields, F, k, spec, backward=True)
+    geo = _check(table, ids, vals, fields, F, k, spec, backward=True)
     B, N = ids.shape
     T = F * (F + 1) // 2
     if tuple(g_out.shape) != (B, T) or g_out.dtype != torch.float32 \
@@ -274,11 +375,10 @@ def ffm_fused_bwd(g_out: torch.Tensor, table: torch.Tensor, ids: torch.Tensor,
     if B == 0 or N == 0:
         return d_emb
     lib = build.load("ffm_triangle")
-    stream = torch.cuda.current_stream(table.device).cuda_stream
     rc = lib.fwt_ffm_fused_bwd(g_out.data_ptr(), table.data_ptr(), ids.data_ptr(),
                                vals.data_ptr(), fields.data_ptr(),
                                d_emb.data_ptr(), B, N, F, k, slab_mask(spec),
-                               int(table.data_ptr() % 16 == 0), stream)
+                               *_launch_args(geo, table))
     build.check(lib, rc, "ffm_fused_bwd")
     with _count_lock:
         BWD_LAUNCHES += 1

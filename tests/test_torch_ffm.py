@@ -7,6 +7,9 @@ padding forms (field −1, and field 0 with value 0), duplicate ids. On the
 CPU the entry runs its plain version; the CUDA kernels are checked against
 it on the card, in tests/test_torch_ffm_cuda.py."""
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +26,7 @@ from fwumious_wabbit_tpu_torch.ops import ffm
 from ffm_cases import PADDINGS, SHAPES, ffm_case, padded
 
 PALLAS_SHAPES = SHAPES[:4]  # the interpreter is slow at F=40
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def jax_model(F, k):
@@ -136,15 +140,58 @@ def test_cpu_gradient_does_not_launch():
 
 
 def test_shared_memory_size_check():
-    """The kernels' shared-memory path takes up to 227 KB per example:
-    F=40, k=8 (51,360 bytes, over the old 48 KB) fits, F=64, k=64 does
-    not."""
-    assert ffm.shared_memory_bytes(40, 8) == (40 * 40 * 8 + 40) * 4
-    assert ffm.shared_memory_bytes(40, 8, backward=True) == (40 * 40 * 8 + 1600) * 4
+    """The kernels' launch geometry (ops/ffm.geometry): TILE examples per
+    tile from F·F·k (32 at the main path's F=2, k=8, 25 at the FFM gate's
+    k=10, 1 at F=40), no more than B / SMs at a small batch, shrunk where a
+    tile's slabs outgrow one ring stage; a whole tile's positions per
+    chunk, or part of one example's at F=40, N=48; the bytes per block the
+    kernel's layout takes; 16-byte slab copies where F·k % 4 == 0 and the
+    table allows, else 8 or 4; the 227 KB refusal at F=64, k=64."""
+    geo = ffm.geometry(2, 8, 8)
+    assert (geo.tile, geo.chunk, geo.staged, geo.vec) == (32, 256, True, 4)
+    assert geo.smem == 4 * (32 * 32 + 4 * 3 * 260 + 3 * 256 * 16) == 65728
+    bwd = ffm.geometry(2, 8, 4, backward=True)
+    assert (bwd.tile, bwd.chunk) == (32, 128)
+    assert bwd.smem == 4 * (32 * 32 + 4 * 3 * 132 + 4 * (32 * 3 + 4) + 3 * 128 * 16)
+    assert (ffm.geometry(2, 10, 2).tile, ffm.geometry(2, 10, 2).chunk) == (25, 50)
+    assert [ffm.geometry(2, 8, 4, B=B, sms=132).tile
+            for B in (1, 256, 1024, 4096, 32768)] == [1, 2, 8, 32, 32]
+    assert ffm.geometry(2, 8, 64).tile == 4  # 4 · 64 slabs of 64 bytes: one stage
+    f40 = ffm.geometry(40, 8, 48, backward=True)
+    assert (f40.tile, f40.chunk, f40.staged) == (1, 12, True)  # four chunks
+    assert f40.smem == 4 * (12800 + 4 * 3 * 16 + 4 * (820 + 4) + 3 * 12 * 320)
+    assert [ffm.geometry(2, 10, 2, table_align=a).vec for a in (16, 8, 4)] == [4, 2, 1]
+    assert [ffm.geometry(3, 2, 5, table_align=a).vec for a in (16, 8, 4)] == [2, 2, 1]
+    assert ffm.geometry(2, 8, 1000).tile == 1 and ffm.geometry(2, 8, 1000).chunk == 256
     with pytest.raises(ValueError, match="227 KB"):
-        ffm.shared_memory_bytes(64, 64)
+        ffm.geometry(64, 64, 4)
     with pytest.raises(ValueError, match="227 KB"):
-        ffm.shared_memory_bytes(64, 64, backward=True)
+        ffm.geometry(64, 64, 4, backward=True)
+
+
+def test_geometry_admits_what_the_old_kernels_took():
+    """Shared memory per block does not grow with N: every (F, k, N) of
+    chip_smoke.BWD_SHAPES, and every F, k up to 64 that the earlier
+    kernels' per-example shared memory admitted (C and F self terms, or C
+    and the F×F gradient, under 227 KB) at every N up to 64, still fits
+    (a contra tensor that leaves no room for the ring reads slabs from
+    global memory); at F=2, k=8 no N up to 4095 takes more bytes per block
+    than N=8."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for F, k, N, _ in smoke.BWD_SHAPES:
+        for backward in (False, True):
+            assert ffm.geometry(F, k, N, backward).staged
+    geometry = ffm.geometry.__wrapped__
+    for F in range(1, 65):
+        for k in range(1, 65):
+            for backward in (False, True):
+                if (F * F * k + (F * F if backward else F)) * 4 > ffm.SMEM_LIMIT_BYTES:
+                    continue
+                sizes = {geometry(F, k, N, backward).smem for N in range(1, 65)}
+                assert max(sizes) <= ffm.SMEM_LIMIT_BYTES, (F, k, backward)
+    assert max(geometry(2, 8, N).smem for N in range(1, 4096)) == 65728
 
 
 @pytest.mark.parametrize("F,k", [(2, 8), (40, 8), (16, 8)])
