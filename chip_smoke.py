@@ -80,11 +80,16 @@ Phases, each raising on failure (exit code 1, and no result line):
    decimal of the 1M run's first 200,000 predictions — each with the ex/s
    of the CLI's Elapsed line, the in-run counters (FWT_COUNTERS_OUT:
    producer busy/stall, transfer busy/starve, consumer starve, dispatch,
-   fetch wait, CPU per thread) and the kernels' launches per step; then a
-   torch.profiler window of 8 packed superbatches (64 steps) of the
-   default layout on a fresh model: wall, device busy, device kernels and
-   the idle share per step, and unpack_row's device kernels per
-   superbatch; then the three kernels against their plain versions at one
+   fetch wait, CPU per thread; the packed superbatches' CUDA graphs
+   captured, superbatches replayed — which must be some — and run step by
+   step), the allocator's peak and the kernels' launches per step; then
+   torch.profiler windows of 8 packed superbatches (64 steps) of the
+   default layout on a fresh model, replayed as its CUDA graph and run
+   step by step, in turns (eager, graph, graph, eager): wall, the CUDA-event
+   span, device busy, device kernels and the idle share per step, with
+   the idle share's range over each mode's two windows (the phase fails
+   if the profiler does not see the kernels inside a graph), and
+   unpack_row's device kernels per superbatch; then the three kernels against their plain versions at one
    packed step's own inputs (B=1024, the C++ ingest's widths, combos in
    the LR ids, the cached ones for the FFM values) within the bounds of
    phases 4 and 5, each timed beside plain, with its bytes and bound;
@@ -103,15 +108,25 @@ Phases, each raising on failure (exit code 1, and no result line):
    against its plain version at one tower step's own cotangent (the
    ``g_x[:, C:]`` slice, which differs across the row);
 7d. the tower's rate: one 1M-line default-path run of the tower model
-   (ex/s, in-run counters, launches per step), and a profiler window of 64
-   packed tower steps (device busy, device kernels and the idle share per
-   step; the tower's kernels per step against 7b's window);
+   (ex/s, in-run counters with the graphs' and the allocator's peak,
+   launches per step), and the profiler windows of 64 packed tower steps,
+   graph and step by step, as 7b's (device busy, device kernels and the
+   idle share per step; the tower's kernels per step against 7b's window);
 7e. the record cache over the 1M file: a recording run (``-c
    --fwt_pack_cache off``) and a reading run of the same flags, their
    predictions bit-identical and within one unit of the -p file's sixth
-   decimal of 7b's 1M run; the codec, the cache's bytes and both runs' ex/s;
-   then ``--build_cache_without_training`` on the 10k file, whose cache
-   equals the one a recording run writes for that file;
+   decimal of 7b's 1M run; the codec, the cache's bytes, both runs' ex/s,
+   graphs and allocator peak; then ``--build_cache_without_training`` on
+   the 10k file, whose cache equals the one a recording run writes for
+   that file;
+7h. the packed step's CUDA graphs against its step-by-step run
+   (``graph=False``), through the CLI over the 1M file's first 167,412 lines
+   (vocabulary re-signatures, a tail of three batches, a padded partial
+   batch), for the LR+FFM model and the tower: the default path, the same
+   with ``--fwt_fetch_stack 4``, and the step-by-step run; the -p files and
+   the model files (every table, accumulator and tower tensor) byte-identical
+   to the step-by-step run's, the graph runs replayed graphs and each
+   kernel launched as often in all three, or the phase fails;
 7f. ``--convert_inference_regressor`` of phase 7's default-path model
    (538,968,064 bytes of tables with their AdaGrad state), as is and with
    ``--weight_quantization``, on the card and with ``--fwt_platform cpu``:
@@ -194,7 +209,8 @@ Phases, each raising on failure (exit code 1, and no result line):
    table bytes, its peak beside three models'.
 
 Each main path (6, the two training paths of 7, each run of 7b, the two
-tower paths of 7c, the 1M run of 7d, both runs of 7e, the three sharded
+tower paths of 7c, the 1M run of 7d, both runs of 7e, the six runs of 7h,
+the three sharded
 runs of 7g, every CLI run of the gates in 10, and 12's training pair, its
 daemon — a process that starts with every count at 0 — and its ``-t -i``)
 runs with the
@@ -207,7 +223,8 @@ serving shape, the backward's at the default step — launches per serving
 batch; the FFM pair's device µs, wall µs, launch floor, bound and share of
 it at each of phase 8's four shapes, ``shapes``;
 per train step from the 10k --fwt_no_native run and per packed train
-step from the first 1M default run, both main paths; its launches on the
+step from the first 1M default run, both main paths (a replayed CUDA graph
+adds each launch it makes); its launches on the
 10k default path; and its error, times, bytes and bound at the default
 path's step, ``default_path_step``; its launches per tower step and per
 sharded step of each 7g run; its launches on the gates' runs and per
@@ -1292,6 +1309,22 @@ def reset_launch_counts() -> None:
     ffm.LAUNCHES = ffm.BWD_LAUNCHES = sparse_update.LAUNCHES = 0
 
 
+def reset_peak_memory() -> dict:
+    """Start a run's allocator peak from what this process holds before it
+    (returned, allocated and reserved): an earlier CLI run's model stays
+    allocated until the collector breaks its cycle (the model caches its
+    packed steps, which hold it), so the cycles are collected first."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return {"allocated": torch.cuda.memory_allocated(),
+            "reserved": torch.cuda.memory_reserved()}
+
+
 def trained_path(data: Path, tag: str, extra=(), base=None) -> dict:
     """One full-width training run through the CLI on the card, a main path:
     the launch counts set to 0 just before it and read just after, each
@@ -1402,6 +1435,11 @@ SETTINGS_RUNS = {"vocab_off": ["--fwt_vocab", "off"],
                  "pack_cache_record": ["--fwt_pack_cache", "on"],
                  "pack_cache_replay": ["--fwt_pack_cache", "on"]}
 SETTINGS_LINES = 200_000
+# the packed superbatches of a run: CUDA graphs captured, superbatches
+# replayed, superbatches run step by step, and the host seconds of each
+# (train/packed.graph_counts)
+GRAPH_COUNTS = ("graph_captures", "graph_replays", "eager_superbatches",
+                "capture_s", "replay_s", "eager_s")
 
 
 def million_run(path: Path, name: str, n_lines: int, extra=(), base=None) -> tuple:
@@ -1412,6 +1450,7 @@ def million_run(path: Path, name: str, n_lines: int, extra=(), base=None) -> tup
     ``(predictions, run, the CLI's log messages)``."""
     counters_path = path.parent / "chip_smoke_counters.json"
     os.environ["FWT_COUNTERS_OUT"] = str(counters_path)
+    held = reset_peak_memory()
     reset_launch_counts()
     try:
         with ElapsedLog() as el:
@@ -1425,16 +1464,25 @@ def million_run(path: Path, name: str, n_lines: int, extra=(), base=None) -> tup
     check(res["examples"] == n_lines and preds.shape == (n_lines,)
           and valid_preds(preds), f"run {name}: {res['examples']} examples, "
                                   f"{preds.shape} predictions for {n_lines} lines")
+    c = res["counters"]
+    check(c["graph_replays"] > 0, f"run {name} replayed no CUDA graph: {c}")
     steps = -(-n_lines // TRAIN_BATCH)
     run = {"ex_s": ex_s, "elapsed_s": res["elapsed"], "lines": n_lines,
            "logloss": logloss(preds, path),
            "launches_per_step": {k: v / steps for k, v in launches.items()},
-           "counters": res["counters"]}
+           "graphs": {k: c[k] for k in GRAPH_COUNTS},
+           "peak_device_bytes": res["peak_device_bytes"],
+           "peak_device_reserved_bytes": res["peak_device_reserved_bytes"],
+           "held_before_bytes": held, "counters": c}
     print(f"timing: train {n_lines:,} lines ({name}: {' '.join(extra) or 'the default'}) "
           f"at B={TRAIN_BATCH}: {ex_s:.0f} ex/s (CLI Elapsed line), "
           f"logloss {run['logloss']:.6f}; kernel launches per step "
-          f"{json.dumps(run['launches_per_step'])}; in-run counters "
-          f"{json.dumps(res['counters'])}", flush=True)
+          f"{json.dumps(run['launches_per_step'])}; packed superbatches "
+          f"{json.dumps(run['graphs'])}; allocator peak "
+          f"{res['peak_device_bytes']} bytes allocated, "
+          f"{res['peak_device_reserved_bytes']} reserved (the process held "
+          f"{held['allocated']} and {held['reserved']} before the run); in-run counters "
+          f"{json.dumps(c)}", flush=True)
     return preds, run, el.records
 
 
@@ -1605,21 +1653,21 @@ def packed_step_profile(big: Path, device, n_groups: int = 8) -> tuple:
     return res, kernels, (lay, bufs, vocab)
 
 
-def profile_window(model, lay, bufs: list, vocab, K: int) -> dict:
-    """The packed superbatches ``bufs`` through make_packed_train_step on
-    ``model``, per step: wall (host clock, the card synchronized at the
-    end; once without and once under the profiler), device busy, device
-    kernels and the idle share in the profiled window."""
+def step_window(step, bufs: list, vocab, n_steps: int) -> dict:
+    """One window of the packed superbatches ``bufs`` through ``step``, per
+    step: wall (host clock, the card synchronized at the end; once without
+    and once under the profiler), the device span from CUDA events around
+    the superbatches of the first, and device busy, device kernels and the
+    idle share in the profiled one."""
     import torch
 
-    from fwumious_wabbit_tpu_torch.train import packed
-
-    step = packed.make_packed_train_step(model, lay, K)
-    step(bufs[0], vocab).cpu()  # warm
     torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     t0 = time.perf_counter()
+    start.record()
     for b in bufs:  # alone in the process: no producer or writer thread
         step(b, vocab)
+    end.record()
     torch.cuda.synchronize()
     quiet = time.perf_counter() - t0
 
@@ -1631,18 +1679,58 @@ def profile_window(model, lay, bufs: list, vocab, K: int) -> dict:
         return time.perf_counter() - t0
 
     prof_rows, wall = device_rows(run, "the packed steps")
-    n_steps = len(bufs) * K
     dev_total = sum(dt for _, dt, _ in prof_rows)
-    n_kernels = sum(n for _, _, n in prof_rows)
     rows = [(round(dt / n_steps, 2), key[:60], n) for key, dt, n in prof_rows]
-    return {"K": K, "superbatches": len(bufs), "words": lay.words,
-            "bytes_per_example": lay.words * 4 / TRAIN_BATCH,
-            "wall_us_per_step": quiet / n_steps * 1e6,
+    return {"wall_us_per_step": quiet / n_steps * 1e6,
+            "event_us_per_step": start.elapsed_time(end) * 1e3 / n_steps,
             "profiled_wall_us_per_step": wall / n_steps * 1e6,
             "device_busy_us_per_step": dev_total / n_steps,
-            "device_kernels_per_step": n_kernels / n_steps,
+            "device_kernels_per_step": sum(n for _, _, n in prof_rows) / n_steps,
             "device_idle_share": 1.0 - dev_total / (wall * 1e6),
             "largest": sorted(rows, reverse=True)[:8]}
+
+
+def profile_window(model, lay, bufs: list, vocab, K: int) -> dict:
+    """The packed superbatches ``bufs`` through make_packed_train_step on
+    ``model``, replayed as its CUDA graph (the default path) and run step
+    by step (``graph=False``), one window each in turns — eager, graph,
+    graph, eager — per step (:func:`step_window`); each mode's summary is
+    its window of the lower profiled wall, ``idle_share_range`` the least
+    and the most idle share of its two windows, and ``windows`` keeps both.
+    Before the windows the graph's first superbatch runs step by step and
+    its second captures it. The phase fails if the profiler reports fewer
+    than half the eager window's kernels per step in the graph's windows:
+    it would then not see the kernels a graph launches, and the graph's
+    device busy and idle share could not be read."""
+    from fwumious_wabbit_tpu_torch.train import packed
+
+    steps = {mode: packed.make_packed_train_step(model, lay, K, graph=mode == "graph")
+             for mode in ("eager", "graph")}
+    for step in steps.values():
+        for _ in range(2):  # warm; the graph's second call captures it
+            step(bufs[0], vocab).cpu()
+    n_steps = len(bufs) * K
+    windows = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        windows[mode].append(step_window(steps[mode], bufs, vocab, n_steps))
+    best = {mode: dict(min(w, key=lambda r: r["profiled_wall_us_per_step"]))
+            for mode, w in windows.items()}
+    eager_kernels = best["eager"]["device_kernels_per_step"]
+    for w in windows["graph"]:
+        check(w["device_kernels_per_step"] >= 0.5 * eager_kernels,
+              f"the profiler sees {w['device_kernels_per_step']} kernels per "
+              f"step in a graph window against {eager_kernels} step by step: "
+              f"it does not report the kernels a graph launches")
+    counts = packed.graph_counts(model)
+    check(counts["graph_captures"] == 1, f"the profile window captured "
+                                         f"{counts['graph_captures']} graphs")
+    return {"K": K, "superbatches": len(bufs), "words": lay.words,
+            "bytes_per_example": lay.words * 4 / TRAIN_BATCH,
+            **best, "idle_share_range": {
+                mode: [min(r["device_idle_share"] for r in w),
+                       max(r["device_idle_share"] for r in w)]
+                for mode, w in windows.items()},
+            "windows": windows}
 
 
 def train_batches(data: Path, device, n_b: int, config=None) -> tuple:
@@ -2080,6 +2168,93 @@ def cache_phase(data: Path, big: Path, default_preds) -> dict:
         del out[name]["preds"]
     fwcache.unlink()
     return {**out, "codec": codec, "bytes": nbytes}
+
+
+# the 1M file's head for 7h: 20 superbatches' lines, a tail of three batches
+# and a padded partial batch
+GRAPH_LINES = 20 * 8 * TRAIN_BATCH + 3 * TRAIN_BATCH + 500
+
+
+def graph_phase(big: Path) -> None:
+    """7h: the packed step's CUDA graphs against its step-by-step run, through
+    the CLI in this process over the first GRAPH_LINES lines of the 1M file
+    (vocabulary re-signatures as the dictionaries grow, a tail, a padded
+    partial batch), for the LR+FFM model and the tower: the default path
+    (graphs replayed while the transfer and writer threads run), the same
+    with ``--fwt_fetch_stack 4``, and the same CLI with every packed step run
+    step by step (make_packed_train_step's ``graph=False``, swapped in for
+    that run). The -p files and the -f --save_resume model files (every
+    table, accumulator and tower tensor) byte-identical to the step-by-step
+    run's, or the phase fails; the graph runs replayed graphs, the
+    step-by-step run none, and each kernel's launches equal in all three."""
+    from fwumious_wabbit_tpu_torch import synthetic
+    from fwumious_wabbit_tpu_torch.train import packed
+
+    head = big.with_name(f"chip_smoke_head_{GRAPH_LINES}.vw")
+    with open(big, "rb") as fh:
+        head.write_bytes(b"".join(fh.readline() for _ in range(GRAPH_LINES)))
+    make = packed.make_packed_train_step
+
+    def eager(model, layout, K, graph=True, capturer=None):
+        return make(model, layout, K, False, capturer)
+
+    counters_path = head.parent / "chip_smoke_counters.json"
+    for model_name, base in (("lr_ffm", None), ("tower", synthetic.tower_argv())):
+        runs = {}
+        for run_name, extra in (("eager", []), ("graph", []),
+                                ("graph_ring", ["--fwt_fetch_stack", "4"])):
+            tag = f"graph_{model_name}_{run_name}"
+            os.environ["FWT_COUNTERS_OUT"] = str(counters_path)
+            held = reset_peak_memory()
+            reset_launch_counts()
+            if run_name == "eager":
+                packed.make_packed_train_step = eager
+            try:
+                _, fwt, ex_s = train_cli(head, tag, extra, base=base)
+            finally:
+                packed.make_packed_train_step = make
+                del os.environ["FWT_COUNTERS_OUT"]
+            res = json.loads(counters_path.read_text())
+            runs[run_name] = {
+                "p": head.with_name(f"chip_smoke_train_{tag}.out").read_bytes(),
+                "fwt": fwt, "ex_s": ex_s, "launches": launch_counts(),
+                "graphs": {k: res["counters"][k] for k in GRAPH_COUNTS},
+                "peak_device_bytes": res["peak_device_bytes"],
+                "peak_device_reserved_bytes": res["peak_device_reserved_bytes"],
+                "held_before_bytes": held}
+        want = runs["eager"]
+        check(want["graphs"]["graph_replays"] == 0,
+              f"7h {model_name}: the step-by-step run replayed graphs")
+        want_fwt = want["fwt"].read_bytes()
+        n_preds = want["p"].count(b"\n")
+        check(n_preds == GRAPH_LINES, f"7h {model_name}: {n_preds} predictions")
+        for run_name in ("graph", "graph_ring"):
+            got = runs[run_name]
+            check(got["graphs"]["graph_replays"] > 0,
+                  f"7h {model_name} {run_name}: no graph replayed")
+            check(got["p"] == want["p"], f"7h {model_name} {run_name}: the -p "
+                                         f"file differs from the step-by-step run's")
+            check(got["fwt"].read_bytes() == want_fwt,
+                  f"7h {model_name} {run_name}: the model file differs from "
+                  f"the step-by-step run's")
+            check(min(got["launches"].values()) > 0,
+                  f"7h {model_name} {run_name}: launches {got['launches']}")
+            check(got["launches"] == want["launches"],
+                  f"7h {model_name} {run_name}: launches {got['launches']} "
+                  f"against the step-by-step run's {want['launches']}")
+        for r in runs.values():
+            r["fwt"].unlink()
+            del r["p"], r["fwt"]
+        print(f"7h graph against step by step, {model_name}, {GRAPH_LINES:,} "
+              f"lines: -p and model files byte-identical in the graph run and "
+              f"with --fwt_fetch_stack 4; " + "; ".join(
+                  f"{k}: {r['ex_s']:.0f} ex/s, superbatches "
+                  f"{json.dumps(r['graphs'])}, launches {json.dumps(r['launches'])}, "
+                  f"allocator peak {r['peak_device_bytes']} bytes allocated, "
+                  f"{r['peak_device_reserved_bytes']} reserved (held before: "
+                  f"{json.dumps(r['held_before_bytes'])})"
+                  for k, r in runs.items()), flush=True)
+    head.unlink()
 
 
 # -- phase 7f: convert and the weight patcher; 7g: the sharded step ----------------
@@ -2675,6 +2850,8 @@ def main() -> int:
         del packed
     with phase("7e record cache"):
         rc_cache = cache_phase(data, big["path"], big["preds"])
+    with phase("7h graph against step by step"):
+        graph_phase(big["path"])
     with phase("7f convert and weight patcher"):
         conv = convert_phase(data, nat["fwt"])
         patch = patcher_phase(data.with_name("chip_smoke_train_native_cpu.fwt"),
@@ -2688,12 +2865,12 @@ def main() -> int:
         four = four_card_phase(big["path"])
     with phase("12 deployment chain"):
         dep = deployment_phase(big["path"], data, card)
-    tower_kernels = (trate["profile"]["device_kernels_per_step"]
-                     - prof["device_kernels_per_step"])
+    tower_kernels = (trate["profile"]["graph"]["device_kernels_per_step"]
+                     - prof["graph"]["device_kernels_per_step"])
     print(f"timing: packed tower train steps at full width (K=8, B=1024), per "
           f"step: {json.dumps(trate['profile'])}; the tower adds "
           f"{tower_kernels!r} device kernels and "
-          f"{trate['profile']['device_busy_us_per_step'] - prof['device_busy_us_per_step']!r} "
+          f"{trate['profile']['graph']['device_busy_us_per_step'] - prof['graph']['device_busy_us_per_step']!r} "
           f"us of device busy per step to 7b's window", flush=True)
     print(f"  on {card}", flush=True)
     print(f"timing: tower training through the CLI at B={TRAIN_BATCH}, 10k "

@@ -186,8 +186,11 @@ def batch_mean_grads(rid: torch.Tensor, grows: torch.Tensor,
                        csum[torch.clamp(run_first - 1, min=0)],
                        torch.zeros((), dtype=grows.dtype, device=grows.device))
     c = torch.clamp(csum[run_last] - base, min=1.0)
-    # tensor / tensor: a Python scalar / tensor is reciprocal() * scalar
-    scaled = grows[order] * torch.clamp(c.new_tensor(cap) / c, max=1.0)
+    # tensor / tensor: a Python scalar / tensor is reciprocal() * scalar;
+    # the cap is filled on the device (new_tensor would copy it from the
+    # host, which a CUDA graph's capture refuses)
+    cap_t = torch.full((), cap, dtype=c.dtype, device=c.device)
+    scaled = grows[order] * torch.clamp(cap_t / c, max=1.0)
     out = torch.empty_like(grows)
     out[order] = scaled
     return out
@@ -225,7 +228,9 @@ class ScopedOptimizer:
         scales the scalar/slab gradients with it before dedup."""
         c = decode_counts(counts) if counts.dtype == torch.uint8 else counts
         c = torch.clamp(c.to(torch.float32), min=1.0)
-        return torch.clamp(c.new_tensor(self.batch_cap) / c, max=1.0)
+        # filled on the device, as in batch_mean_grads
+        cap = torch.full((), self.batch_cap, dtype=c.dtype, device=c.device)
+        return torch.clamp(cap / c, max=1.0)
 
     def apply_dense(self, w: torch.Tensor, acc: torch.Tensor | None,
                     gsum: torch.Tensor, gsq: torch.Tensor):

@@ -24,6 +24,11 @@ through the plain version on a CPU tensor. :class:`FfmFused` joins the two
 as a ``torch.autograd.Function`` whose gradient flows to a stride-0 leaf of
 the slabs' shape (:func:`slab_leaf`): the train step takes ``d emb`` from
 it, and the slabs themselves are never materialized on the card.
+
+Both launch on the current stream (the backward on the one autograd gives
+it, the forward's) and neither synchronises, so a CUDA graph captures them
+(train/packed.py); the library and the card's SM count must already be
+loaded when a capture begins.
 """
 
 from __future__ import annotations
@@ -37,9 +42,20 @@ import torch
 from . import tables
 from .kernels import build
 
-LAUNCHES = 0  # kernel launches made by ffm_fused (CUDA tensors only)
-BWD_LAUNCHES = 0  # kernel launches made by ffm_fused_bwd (CUDA tensors only)
+# kernel launches made by ffm_fused and ffm_fused_bwd (CUDA tensors only);
+# a CUDA graph's replay adds the launches it captured (add_launches)
+LAUNCHES = 0
+BWD_LAUNCHES = 0
 _count_lock = threading.Lock()
+
+
+def add_launches(fwd: int, bwd: int) -> None:
+    """Count ``fwd`` forward and ``bwd`` backward launches made other than
+    by a wrapper's own call: a replayed graph's (train/packed.py)."""
+    global LAUNCHES, BWD_LAUNCHES
+    with _count_lock:
+        LAUNCHES += fwd
+        BWD_LAUNCHES += bwd
 
 # dynamic shared memory a block may use on Hopper (227 KB)
 SMEM_LIMIT_BYTES = 232448

@@ -14,6 +14,10 @@ sum over tiles of :data:`TILE` sorted positions, in two launches, which
 touches only the rows in ``rid``. It raises on any failure; there is no
 fallback. On a CPU tensor it runs the plain version,
 ops/adagrad.apply_rows_plain.
+
+It launches on the current stream and neither synchronises nor copies from
+the host, so a CUDA graph captures it (train/packed.py); the library and
+the LUT must already be loaded when a capture begins.
 """
 
 from __future__ import annotations
@@ -27,11 +31,21 @@ from . import adagrad
 from .kernels import build
 from .tables import LANE
 
-LAUNCHES = 0  # kernel launches made by sparse_adagrad_update (CUDA tensors only)
+# kernel launches made by sparse_adagrad_update (CUDA tensors only); a CUDA
+# graph's replay adds the launches it captured (add_launches)
+LAUNCHES = 0
 # sorted positions per block of the kernel's first pass: kTile in
 # csrc/sparse_update.cu, which refuses any other value; it sizes the scratch
 TILE = 64
 _count_lock = threading.Lock()
+
+
+def add_launches(n: int) -> None:
+    """Count ``n`` launches made other than by a call of
+    :func:`sparse_adagrad_update`: a replayed graph's (train/packed.py)."""
+    global LAUNCHES
+    with _count_lock:
+        LAUNCHES += n
 
 
 def _check(w, acc, rid, grows, kind) -> None:

@@ -30,7 +30,9 @@ bit-packing and vocabulary encoding, train/producer.py) on one thread; K
 batches packed into one u32 buffer (train/packed.py, ``--fwt_superbatch``,
 default 8); one host→device copy per superbatch through a ring of pinned
 buffers on a thread and stream of their own (producer ``Transferrer``); K
-train steps on the card; one prediction fetch per superbatch, copied back
+train steps on the card, from the second superbatch of a (layout, K) on
+replayed as one CUDA graph (the JAX CLI's jitted ``lax.scan``; a graph that
+fails ends the run with exit 1); one prediction fetch per superbatch, copied back
 without blocking and written by the writer thread once its event has
 completed. ``-t`` sends its batches one at a time through the same copy
 stage. The daemon parses in Python. ``--fwt_bitpack``, ``--fwt_vocab``,
@@ -97,6 +99,7 @@ from ..ingest import (
 )
 from ..utils.device import NoDeviceError, resolve_device
 from ..utils.logging import get_logger
+from .packed import GraphError
 from .predict import PredictionWriter, native_predict_eligible
 
 log = get_logger(__name__)
@@ -288,7 +291,10 @@ def _to_host(preds: torch.Tensor):
     host. On the card the copy goes into pinned memory without blocking,
     and the event marks its end (the writer waits on it: the counterpart
     of the JAX loop's ``copy_to_host_async``). On the CPU a plain copy, so
-    a later in-place write (the fetch ring) cannot reach it."""
+    a later in-place write (the fetch ring) cannot reach it. The copy is
+    enqueued on the current stream before this returns, so a later write
+    to ``preds`` on that stream (the next replay of a packed step's CUDA
+    graph, which owns its output) cannot overtake it."""
     if preds.device.type != "cuda":
         return preds.detach().clone(), None
     host = torch.empty(preds.shape, dtype=preds.dtype, pin_memory=True)
@@ -690,6 +696,7 @@ def _native_ingest(args, mi, vw, model, run: _Run) -> None:
             flush_ring()  # keep the prediction stream in order
             run.process({k: arrived(v, ev) for k, v in bd.items()}, n)
     flush_ring()
+    ctr.update(packed_mod.graph_counts(model))
     # the producer writes ctr['producer_busy_s'] in its finally block: join
     # both stage threads before the counters are read
     prod_t.join(timeout=10.0)
@@ -820,7 +827,8 @@ def main(argv=None) -> int:
 
 
 def _add_run_facts(result: dict, model, mesh) -> None:
-    """The kernels' launches in this process, the card's peak memory and,
+    """The kernels' launches in this process, the card's peak memory
+    (allocated and reserved) and,
     under a mesh, the group's set-up seconds and the sharded steps'
     collective bytes on this rank: what FWT_COUNTERS_OUT adds to the
     counters."""
@@ -832,6 +840,9 @@ def _add_run_facts(result: dict, model, mesh) -> None:
     device = model.lr_w.device
     if device.type == "cuda":
         result["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+        # a CUDA graph's private pool is reserved, not allocated, between
+        # its replays
+        result["peak_device_reserved_bytes"] = torch.cuda.max_memory_reserved(device)
     if mesh is not None:
         from ..parallel import sharded
 
@@ -879,6 +890,9 @@ def _train(args, device, mesh, writes: bool = True) -> int:
         # reference: in-band commands in an input FILE abort the run
         # (src/main.rs:44-47,218-221)
         log.error("Global error: %s", e)
+        return 1
+    except GraphError as e:
+        log.error("%s", e)
         return 1
     result["files_written"] = [args.predictions] if args.predictions else []
     if args.final_regressor and writes:
