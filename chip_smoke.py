@@ -56,7 +56,13 @@ Phases, each raising on failure (exit code 1, and no result line):
    then ``-t -i`` predict through the CLI over the 10k-line file. Every
    reply and prediction must equal the port's plain path — ``-t -i``
    through the same CLI with ``--fwt_platform cpu``, from the same model
-   file — within 2e-6;
+   file — within 2e-6; the daemon is stopped as SIGTERM stops it and its
+   counters must show predict-graph replays, at most one capture per
+   batch signature and model served; then fresh daemons of the first
+   model, step by step and graphed in turns (eager, graph, graph, eager):
+   the first three requests' latencies, one client's 1000 request/response
+   lines (p50, p99) and 8 clients of 100 lines each at once (p50, p99),
+   every run's replies byte-identical to the first run's;
 7. training at full width through the CLI: the same configuration with its
    AdaGrad state (``synthetic.training_config``: AdagradLUT, power_t 0, the
    batch-mean cap), the 10k-line file at ``--fwt_batch_size 1024`` (10
@@ -127,6 +133,21 @@ Phases, each raising on failure (exit code 1, and no result line):
    the model files (every table, accumulator and tower tensor) byte-identical
    to the step-by-step run's, the graph runs replayed graphs and each
    kernel launched as often in all three, or the phase fails;
+7i. the per-batch train and predict steps' CUDA graphs (one per batch
+   signature) against the same CLI with every step run step by step
+   (``graph=False``): ``-t -i`` of phase 7's default-path model over the
+   1M file's first 200,000 lines, ``--fwt_no_native``,
+   ``--prediction_model_delay 4096`` and ``--holdout_after 8000`` over the
+   10k file, and ``--fwt_exact`` over its first 2,000 lines (B=1); the
+   -p files and the model files byte-identical, the graph runs replayed
+   per-batch graphs, the step-by-step runs none, each kernel launched as
+   often in every run, each path's lines/s or ex/s (``-t`` and the delay
+   in turns: eager, graph, graph, eager) and reserved peak; then profiler
+   windows of 64 per-batch steps, graphed and step by step in turns, of
+   the train and the predict step at B=1024 and the daemon's predict step
+   at B=256: host dispatch, wall, device busy and kernels and the idle
+   share per step (the phase fails if a window captured anew or the
+   profiler does not see a graph's kernels);
 7f. ``--convert_inference_regressor`` of phase 7's default-path model
    (538,968,064 bytes of tables with their AdaGrad state), as is and with
    ``--weight_quantization``, on the card and with ``--fwt_platform cpu``:
@@ -203,14 +224,16 @@ Phases, each raising on failure (exit code 1, and no result line):
    swap 64 replies on a fresh connection within 2e-6 of ``-t -i`` of the
    recreated v2q on the device engine and the native engine and of the
    CPU; SIGTERM ends the daemon, which writes its launches (the FFM
-   forward must have launched beyond its warm-up) and the card's bytes
+   forward must have launched beyond its warm-up), its predict graphs'
+   counts (replays > 0, captures at most the batch signatures times the
+   models served) and the card's bytes
    allocated in it after each swap (read once no prediction holds an
    earlier model): those after swap 4 and swap 20 within one model's
    table bytes, its peak beside three models'.
 
 Each main path (6, the two training paths of 7, each run of 7b, the two
 tower paths of 7c, the 1M run of 7d, both runs of 7e, the six runs of 7h,
-the three sharded
+the runs of 7i, the three sharded
 runs of 7g, every CLI run of the gates in 10, and 12's training pair, its
 daemon — a process that starts with every count at 0 — and its ``-t -i``)
 runs with the
@@ -1773,7 +1796,7 @@ def step_update_phase(data: Path, device) -> dict:
     from fwumious_wabbit_tpu_torch.train import step as st
 
     model, hb, _ = train_batches(data, device, 3)
-    step = st.make_train_step(model)
+    step = st.make_train_step(model, graph=False)
     for b in hb[:2]:
         step(b)
     out = step_update_check(model, st.to_device(hb[2], st.TRAIN_KEYS, device),
@@ -1951,7 +1974,7 @@ def train_breakdown(data: Path, device, n_b: int = 8) -> dict:
             model.ffm_w, model.ffm_acc, ffm_rid, ffm_g, pre_scaled=True))
         return p
 
-    step = st.make_train_step(model)
+    step = st.make_train_step(model, graph=False)
     for b in hb[:2]:  # warm
         step(b).cpu()
     for b in hb:
@@ -2257,6 +2280,376 @@ def graph_phase(big: Path) -> None:
     head.unlink()
 
 
+# -- phase 7i: the per-batch steps' CUDA graphs; the daemon's graphs ------------------
+
+
+@contextlib.contextmanager
+def step_by_step():
+    """Inside the block every step the CLI and the daemon build — the
+    packed step, the per-batch train and predict steps — runs step by step
+    (``graph=False``): the path the graphs are held to."""
+    from fwumious_wabbit_tpu_torch.serve import server
+    from fwumious_wabbit_tpu_torch.train import packed
+    from fwumious_wabbit_tpu_torch.train import step as st
+
+    made = (packed.make_packed_train_step, st.make_train_step, st.make_predict_step)
+
+    def packed_eager(model, layout, K, graph=True, capturer=None):
+        return made[0](model, layout, K, False, capturer)
+
+    def train_eager(model, graph=True, capturer=None):
+        return made[1](model, False)
+
+    def predict_eager(model, graph=True, capturer=None):
+        return made[2](model, False)
+
+    packed.make_packed_train_step, st.make_train_step = packed_eager, train_eager
+    st.make_predict_step = server.make_predict_step = predict_eager
+    try:
+        yield
+    finally:
+        packed.make_packed_train_step, st.make_train_step = made[:2]
+        st.make_predict_step = server.make_predict_step = made[2]
+
+
+@contextlib.contextmanager
+def recording_daemons():
+    """The ``Serving`` objects the CLI's daemons make inside the block,
+    listed, so that they can be stopped (:func:`stop_daemon`)."""
+    from fwumious_wabbit_tpu_torch.serve import server
+
+    made, base = [], server.Serving
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    server.Serving = Recorded
+    try:
+        yield made
+    finally:
+        server.Serving = base
+
+
+def stop_daemon(srv, where: Path) -> dict:
+    """Stop a daemon of this process as SIGTERM does (its serve loop ends)
+    and return the counters it writes as it ends (FWT_COUNTERS_OUT): its
+    launches, swaps, allocated bytes and its predict graphs' counts."""
+    counters = where / "chip_smoke_daemon_counters.json"
+    counters.unlink(missing_ok=True)
+    os.environ["FWT_COUNTERS_OUT"] = str(counters)
+    try:
+        srv.shutdown()
+        deadline = time.time() + 60
+        while not counters.exists() and time.time() < deadline:
+            time.sleep(0.05)
+        check(counters.exists(), "a stopped daemon wrote no counters")
+        time.sleep(0.1)  # the file is written whole by one json.dump
+        return json.loads(counters.read_text())
+    finally:
+        del os.environ["FWT_COUNTERS_OUT"]
+
+
+def daemon_graph_counts(counters: dict, what: str) -> dict:
+    """The daemon's predict graphs from its counters: replays > 0, and at
+    most one capture per signature and model served."""
+    g = counters["predict_graphs"]
+    check(g["graph_replays"] > 0, f"{what}: the daemon replayed no predict graph: {g}")
+    check(g["graph_captures"] <= g["signatures"] * (counters["hogwild_loads"] + 1),
+          f"{what}: {g['graph_captures']} predict-graph captures for "
+          f"{g['signatures']} signatures and {counters['hogwild_loads']} swaps")
+    return g
+
+
+DAEMON_SOAK_CLIENTS, DAEMON_SOAK_LINES = 8, 100
+
+
+def daemon_turns(model_path: Path, data: Path) -> dict:
+    """The daemon with its predict graphs against the same daemon run step
+    by step, in turns (eager, graph, graph, eager), each a fresh daemon of
+    this process on ``model_path``: the first three requests' latencies,
+    one client's 1000 request/response lines (p50, p99), then 8 clients at
+    once, 100 request/response lines each (p50, p99 over all); every run's
+    replies byte-identical to the first run's; the daemon stopped, its
+    counters read (the graph runs replayed predict graphs)."""
+    import numpy as np
+
+    lines = data.read_bytes().splitlines(keepends=True)
+    runs = {"eager": [], "graph": []}
+    want = None
+    for mode in ("eager", "graph", "graph", "eager"):
+        port = free_port()
+        with recording_daemons() as made, \
+                (step_by_step() if mode == "eager" else contextlib.nullcontext()):
+            start_daemon(model_path, port)
+        c = Client(port)
+        first, lat, replies = [], [], []
+        for line in lines[:1003]:
+            t0 = time.perf_counter()
+            replies.append(c.send(line))
+            (first if len(first) < 3 else lat).append(time.perf_counter() - t0)
+        c.close()
+        soak_lat, errors = [], []
+
+        def client(k):
+            try:
+                cc = Client(port)
+                start = 1003 + k * DAEMON_SOAK_LINES
+                for line in lines[start:start + DAEMON_SOAK_LINES]:
+                    t0 = time.perf_counter()
+                    reply = cc.send(line)
+                    soak_lat.append(time.perf_counter() - t0)
+                    check(reply.endswith(b"\n") and not reply.startswith(b"ERR"),
+                          f"soak reply {reply!r}")
+                cc.close()
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(DAEMON_SOAK_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        check(not errors and len(soak_lat) == DAEMON_SOAK_CLIENTS * DAEMON_SOAK_LINES,
+              f"daemon soak ({mode}): {errors[:1]}")
+        counters = stop_daemon(made[0], data.parent)
+        if mode == "graph":
+            daemon_graph_counts(counters, "the daemon's turns")
+        else:
+            check(counters["predict_graphs"]["graph_replays"] == 0,
+                  "the step-by-step daemon replayed graphs")
+        if want is None:
+            want = replies
+        check(replies == want, f"daemon ({mode}): replies differ from the "
+                               f"first run's")
+        lat_us, soak_us = np.array(lat) * 1e6, np.array(soak_lat) * 1e6
+        runs[mode].append({
+            "first_requests_us": [x * 1e6 for x in first],
+            "p50_us": float(np.percentile(lat_us, 50)),
+            "p99_us": float(np.percentile(lat_us, 99)),
+            "soak_p50_us": float(np.percentile(soak_us, 50)),
+            "soak_p99_us": float(np.percentile(soak_us, 99)),
+            "predict_graphs": {k: v for k, v in counters["predict_graphs"].items()}})
+    return runs
+
+
+def batch_step_window(step, batches: list, n_steps: int) -> dict:
+    """``n_steps`` calls of a per-batch ``step`` over ``batches`` in turn,
+    per step: the host time until the last call returned (the dispatch),
+    the wall time to the card's end; then a profiled window of the same:
+    device busy, device kernels and the idle share."""
+    import torch
+
+    seq = [batches[i % len(batches)] for i in range(n_steps)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in seq:
+        step(b)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def run():
+        t0 = time.perf_counter()
+        for b in seq:
+            step(b)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    rows, pwall = device_rows(run, "the per-batch steps")
+    busy = sum(dt for _, dt, _ in rows)
+    return {"host_us_per_step": host / n_steps * 1e6,
+            "wall_us_per_step": wall / n_steps * 1e6,
+            "profiled_wall_us_per_step": pwall / n_steps * 1e6,
+            "device_busy_us_per_step": busy / n_steps,
+            "device_kernels_per_step": sum(n for _, _, n in rows) / n_steps,
+            "device_idle_share": 1.0 - busy / (pwall * 1e6)}
+
+
+BATCH_WINDOW_STEPS = 64
+
+
+def batch_step_windows(data: Path, serving_model: Path, device) -> dict:
+    """Profiler windows of 64 per-batch steps, each graphed (one graph per
+    signature, captured before the windows) and step by step, in turns
+    (eager, graph, graph, eager): the train step and the predict step at
+    B=1024 over 8 of the 10k file's batches as the Python ingest makes
+    them (the training model), and the daemon's predict step at B=256 over
+    8 padded 256-line batches (the serving model); per step the host
+    dispatch, the wall, device busy and kernels and the idle share; each
+    mode's summary its window of the lower profiled wall, with the idle
+    share's range. The phase fails if a graph window captured more than
+    once or the profiler sees fewer than half the eager window's kernels
+    in a graph window."""
+    from fwumious_wabbit_tpu_torch.ingest import Batcher, FeatureTranslator, VowpalParser
+    from fwumious_wabbit_tpu_torch.persistence.model_file import load_model
+    from fwumious_wabbit_tpu_torch.train import step as st
+
+    model, hb, _ = train_batches(data, device, 8)
+    mi, vw, serving = load_model(serving_model, immutable=True, device=device)
+    parser, ft, batcher = VowpalParser(vw), FeatureTranslator(mi), Batcher(256)
+    lines = data.read_bytes().splitlines(True)[:8 * 256]
+    tes = [ft.translate(parser.parse_line(line)) for line in lines]
+    daemon = [st.batch_dict(batcher.make_batch(tes[i:i + 256], pad_to_batch=True))
+              for i in range(0, len(tes), 256)]
+    cases = {"train_b1024": (st.make_train_step, model, hb),
+             "predict_b1024": (st.make_predict_step, model, hb),
+             "daemon_predict_b256": (st.make_predict_step, serving, daemon)}
+    out = {}
+    for name, (make, m, batches) in cases.items():
+        steps = {"eager": make(m, graph=False), "graph": make(m)}
+        for step in steps.values():
+            for _ in range(2):  # the graph's first call runs step by step, the second captures
+                step(batches[0])
+        windows = {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            windows[mode].append(batch_step_window(steps[mode], batches,
+                                                   BATCH_WINDOW_STEPS))
+        counts = steps["graph"].counts
+        check(counts["graph_captures"] == 1 and counts["eager_batches"] == 1,
+              f"{name}: the graph windows captured anew: {counts}")
+        eager_kernels = min(w["device_kernels_per_step"] for w in windows["eager"])
+        for w in windows["graph"]:
+            check(w["device_kernels_per_step"] >= 0.5 * eager_kernels,
+                  f"{name}: the profiler sees {w['device_kernels_per_step']} "
+                  f"kernels per step in a graph window against {eager_kernels}")
+        out[name] = {
+            **{mode: dict(min(w, key=lambda r: r["profiled_wall_us_per_step"]))
+               for mode, w in windows.items()},
+            "idle_share_range": {mode: [min(r["device_idle_share"] for r in w),
+                                        max(r["device_idle_share"] for r in w)]
+                                 for mode, w in windows.items()},
+            "host_us_range": {mode: [min(r["host_us_per_step"] for r in w),
+                                     max(r["host_us_per_step"] for r in w)]
+                              for mode, w in windows.items()},
+            "graph_counts": dict(counts)}
+    del model, serving
+    return out
+
+
+STEP_COUNTS = tuple(f"{kind}_{k}" for kind in ("train", "predict") for k in (
+    "graph_captures", "graph_replays", "eager_batches", "capture_s", "replay_s",
+    "eager_s"))
+EXACT_LINES = 2000
+# name → (the data: the 10k file, the 1M file's first 200,000 lines, the
+# 10k file's first EXACT_LINES; flags; -f written; timed in turns)
+STEP_GRAPH_RUNS = {
+    "testonly_200k": ("head200k", ["-t"], False, True),
+    "no_native": ("10k", ["--fwt_no_native"], True, False),
+    "delay_4096": ("10k", ["--prediction_model_delay", "4096"], True, True),
+    "holdout_8000": ("10k", ["--holdout_after", "8000"], True, False),
+    "exact_2000": ("exact", ["--fwt_exact"], True, False),
+}
+
+
+def step_graph_phase(data: Path, big: Path, trained: Path) -> dict:
+    """7i: the per-batch steps' CUDA graphs against their step-by-step run
+    (every step ``graph=False``, :func:`step_by_step`), through the CLI in
+    this process: ``-t -i`` of phase 7's default-path model over the first
+    200,000 lines of the 1M file, ``--fwt_no_native``,
+    ``--prediction_model_delay 4096`` and ``--holdout_after 8000`` over
+    the 10k file, ``--fwt_exact`` over its first 2,000 lines; ``-t`` and
+    the delay in turns (eager, graph, graph, eager), the others eager then
+    graph (scripts/step_graph_ab.py times ``--fwt_exact`` in turns). Each
+    run's -p file, and the first eager and graph training runs' model
+    files, byte-identical to the first step-by-step run's; the graph runs
+    replayed per-batch graphs, the step-by-step runs none; each kernel
+    launched as often in every run of a path; lines/s or ex/s from the
+    CLI's Elapsed line, the per-batch graphs' counters and the reserved
+    peak per run."""
+    import hashlib
+
+    from fwumious_wabbit_tpu_torch import synthetic
+    from fwumious_wabbit_tpu_torch.train.loop import main
+
+    head = big.with_name(f"chip_smoke_head_{SETTINGS_LINES}.vw")
+    if not head.exists():
+        with open(big, "rb") as fh:
+            head.write_bytes(b"".join(fh.readline() for _ in range(SETTINGS_LINES)))
+    exact = data.with_name(f"chip_smoke_head_{EXACT_LINES}.vw")
+    exact.write_bytes(b"".join(data.read_bytes().splitlines(True)[:EXACT_LINES]))
+    files = {"10k": data, "head200k": head, "exact": exact}
+    counters_path = data.with_name("chip_smoke_counters.json")
+    out = {}
+    for name, (which, flags, save, turns) in STEP_GRAPH_RUNS.items():
+        path = files[which]
+        runs = []
+        for mode in (("eager", "graph", "graph", "eager") if turns
+                     else ("eager", "graph")):
+            tag = f"7i_{name}_{mode}_{len(runs)}"
+            pred = data.with_name(f"chip_smoke_{tag}.out")
+            fwt = data.with_name(f"chip_smoke_{tag}.fwt")
+            argv = ["--data", str(path), "--fwt_batch_size", str(TRAIN_BATCH),
+                    "-p", str(pred), *flags]
+            if "-t" in flags:
+                argv += ["-i", str(trained)]
+            else:
+                argv = synthetic.serving_argv() + argv
+            keep = save and len(runs) < 2  # -f of the first eager and graph runs
+            if keep:
+                argv += ["-f", str(fwt), "--save_resume"]
+            os.environ["FWT_COUNTERS_OUT"] = str(counters_path)
+            held = reset_peak_memory()
+            reset_launch_counts()
+            try:
+                with ElapsedLog() as el, (step_by_step() if mode == "eager"
+                                          else contextlib.nullcontext()):
+                    rc = main(argv)
+            finally:
+                del os.environ["FWT_COUNTERS_OUT"]
+            check(rc == 0, f"7i {name} ({mode}) exited {rc}")
+            res = json.loads(counters_path.read_text())
+            c = res["counters"]
+            run = {"mode": mode, "rate": el.ex_per_s(), "launches": launch_counts(),
+                   "p_sha256": hashlib.sha256(pred.read_bytes()).hexdigest(),
+                   "lines": pred.read_bytes().count(b"\n"),
+                   "steps": {k: c.get(k) for k in STEP_COUNTS},
+                   "packed": {k: c.get(k) for k in GRAPH_COUNTS},
+                   "dispatch_s": c["dispatch_s"],
+                   "peak_device_reserved_bytes": res.get("peak_device_reserved_bytes"),
+                   "peak_device_bytes": res.get("peak_device_bytes"),
+                   "held_before_bytes": held}
+            pred.unlink()
+            if keep:
+                run["f_sha256"] = hashlib.sha256(fwt.read_bytes()).hexdigest()
+                fwt.unlink()
+            runs.append(run)
+        want = runs[0]
+        n_lines = len(path.read_bytes().splitlines())
+        for r in runs:
+            check(r["lines"] == n_lines, f"7i {name}: {r['lines']} predictions "
+                                         f"for {n_lines} lines")
+            check(r["p_sha256"] == want["p_sha256"], f"7i {name} ({r['mode']}): "
+                  f"the -p file differs from the step-by-step run's")
+            check(r.get("f_sha256", want.get("f_sha256")) == want.get("f_sha256"),
+                  f"7i {name} ({r['mode']}): the model file differs from the "
+                  f"step-by-step run's")
+            check(r["launches"] == want["launches"], f"7i {name} ({r['mode']}): "
+                  f"launches {r['launches']} against {want['launches']}")
+            replays = sum(r["steps"][f"{k}_graph_replays"] or 0
+                          for k in ("train", "predict"))
+            if r["mode"] == "graph":
+                check(replays > 0, f"7i {name}: no per-batch graph replayed")
+            else:
+                check(replays == 0 and not (r["packed"]["graph_replays"] or 0),
+                      f"7i {name}: the step-by-step run replayed graphs")
+        check(want["launches"]["ffm_triangle"] > 0 and (
+            "-t" in flags or min(want["launches"].values()) > 0),
+            f"7i {name}: launches {want['launches']}")
+        out[name] = runs
+        print(f"7i per-batch graphs against step by step, {name}, {n_lines:,} "
+              f"lines: -p{' and model' if save else ''} files byte-identical; "
+              + "; ".join(f"{r['mode']}: {r['rate']:.0f} per s, dispatch "
+                          f"{r['dispatch_s']:.3f} s, per-batch steps "
+                          f"{json.dumps(r['steps'])}, packed {json.dumps(r['packed'])}, "
+                          f"launches {json.dumps(r['launches'])}, reserved peak "
+                          f"{r['peak_device_reserved_bytes']}" for r in runs), flush=True)
+    exact.unlink()
+    return out
+
+
 # -- phase 7f: convert and the weight patcher; 7g: the sharded step ----------------
 
 # the bound of the JAX package's quantization tests on the predictions of a
@@ -2416,7 +2809,7 @@ def sharded_phase(data: Path, device) -> dict:
                                    ("tower", synthetic.tower_training_config, ("a2a",))):
         ref, hb, _ = train_batches(data, device, SHARDED_STEPS, config)
         batches = [st.to_device(b, st.TRAIN_KEYS, device) for b in hb]
-        step = st.make_train_step(ref)
+        step = st.make_train_step(ref, graph=False)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = torch.stack([step(b) for b in batches]).cpu().numpy()
@@ -2832,10 +3225,16 @@ def main() -> int:
 
     with phase("6 serving"):
         ffm.LAUNCHES = 0  # the serving path starts here
-        srv = serving_phase(data, paths)
+        with recording_daemons() as daemons:
+            srv = serving_phase(data, paths)
         launches = ffm.LAUNCHES
-    print(f"ffm_fused kernel launches on the serving path: {launches}", flush=True)
-    check(launches > 0, "the serving path never launched the fused FFM forward")
+        six = stop_daemon(daemons[0], data.parent)
+        six_graphs = daemon_graph_counts(six, "phase 6")
+        print(f"ffm_fused kernel launches on the serving path: {launches}; the "
+              f"daemon's predict graphs at its end: {json.dumps(six_graphs)}",
+              flush=True)
+        check(launches > 0, "the serving path never launched the fused FFM forward")
+        turns = daemon_turns(paths[0], data)
 
     with phase("7 training 10k"):
         trn = training_phase(data)  # the Python-ingest training path
@@ -2852,6 +3251,9 @@ def main() -> int:
         rc_cache = cache_phase(data, big["path"], big["preds"])
     with phase("7h graph against step by step"):
         graph_phase(big["path"])
+    with phase("7i per-batch graphs against step by step"):
+        step_runs = step_graph_phase(data, big["path"], nat["fwt"])
+        windows = batch_step_windows(data, paths[0], device)
     with phase("7f convert and weight patcher"):
         conv = convert_phase(data, nat["fwt"])
         patch = patcher_phase(data.with_name("chip_smoke_train_native_cpu.fwt"),
@@ -2901,6 +3303,24 @@ def main() -> int:
     print(f"  on {card}", flush=True)
     print(f"timing: daemon pipelined burst {srv['burst_lines_s']:.0f} lines/s "
           f"(4096 lines)", flush=True)
+    print(f"  on {card}", flush=True)
+    for mode, runs in turns.items():
+        for r in runs:
+            print(f"timing: daemon ({mode}, in turns eager, graph, graph, eager): "
+                  f"first three requests {', '.join(f'{x:.1f}' for x in r['first_requests_us'])} "
+                  f"us; one client p50 {r['p50_us']:.1f} us, p99 {r['p99_us']:.1f} us; "
+                  f"{DAEMON_SOAK_CLIENTS} clients p50 {r['soak_p50_us']:.1f} us, p99 "
+                  f"{r['soak_p99_us']:.1f} us; predict graphs "
+                  f"{json.dumps(r['predict_graphs'])}", flush=True)
+    print(f"  on {card}", flush=True)
+    for name, w in windows.items():
+        print(f"timing: per-batch {name}, {BATCH_WINDOW_STEPS}-step windows in "
+              f"turns, per step: " + json.dumps(w), flush=True)
+    print(f"  on {card}", flush=True)
+    for name, runs in step_runs.items():
+        print(f"timing: 7i {name}: " + "; ".join(
+            f"{r['mode']} {r['rate']:.0f} per s (reserved peak "
+            f"{r['peak_device_reserved_bytes']})" for r in runs), flush=True)
     print(f"  on {card}", flush=True)
     print(update_timing_line(
         f"at R=262144 K={TRAIN_BATCH * 15} Zipf ids ({upd['unique_rows']} "

@@ -32,9 +32,11 @@ the 10k-line file with ``--cpu``):
 6. SIGTERM ends the daemon, which writes its launches, its swaps, the
    card's allocated bytes after each swap (read in the daemon as the next
    swap starts, and as it ends) and the allocator's peak
-   (``FWT_COUNTERS_OUT``); on the card the FFM forward must have launched,
-   and the bytes after swap 4 and after swap 20 must agree within one
-   model's table bytes, the peak reported beside three models' bytes.
+   and its predict graphs' counts (``FWT_COUNTERS_OUT``); on the card the
+   FFM forward must have launched, the predict graphs replayed and been
+   captured at most once per batch signature and model served, and the
+   bytes after swap 4 and after swap 20 must agree within one model's
+   table bytes, the peak reported beside three models' bytes.
    ``nvidia-smi --query-compute-apps`` is read for the daemon's pid beside
    them, where it lists that pid.
 
@@ -588,6 +590,11 @@ def serve_chain(versions: dict, pool_source: Path, work: Path, cpu: bool,
     if not cpu:
         require(counters["launches"]["ffm_triangle"] > 1,
                 "the daemon never launched the FFM forward after its warm-up")
+        g = counters["predict_graphs"]
+        require(g["graph_replays"] > 0, f"the daemon replayed no predict graph: {g}")
+        require(g["graph_captures"] <= g["signatures"] * (SWAPS + 1),
+                f"the daemon captured {g['graph_captures']} predict graphs for "
+                f"{g['signatures']} batch signatures over {SWAPS + 1} models")
         held = {int(i): b for i, b in counters["resident_bytes_after_swap"].items()}
         require(all(i in held for i in MEMORY_AT),
                 f"the daemon read its allocated bytes after swaps {sorted(held)}")
@@ -625,7 +632,8 @@ def report(out: dict) -> None:
         f"create_diff {e['seconds']['create_diff']:.2f} s, recreate "
         f"{e['seconds']['recreate']:.2f} s")
     say(f"deployment: the daemon's launches {json.dumps(out['daemon']['launches'])}"
-        f" over {out['daemon']['hogwild_loads']} swaps")
+        f" over {out['daemon']['hogwild_loads']} swaps; its predict graphs "
+        f"{json.dumps(out['daemon']['predict_graphs'])}")
     if "memory" in out:
         m = out["memory"]
         say(f"memory: the daemon's allocated device bytes after swaps "

@@ -349,7 +349,10 @@ class FwModel(nn.Module):
             key = (tuple(ids.shape), ids.device)
             vals = self._ones.get(key)
             if vals is None:
-                vals = self._ones[key] = torch.ones(ids.shape, device=ids.device)
+                # a normal tensor even when the predict step makes it: a
+                # train step of the same shape reads it under autograd
+                with torch.inference_mode(False):
+                    vals = self._ones[key] = torch.ones(ids.shape, device=ids.device)
         return FfmFused.apply(emb_leaf, table, ids, vals.contiguous(),
                               batch["ffm_fields"].to(torch.int32).contiguous(),
                               self.num_fields, self.ffm_k, spec)

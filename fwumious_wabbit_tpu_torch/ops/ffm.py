@@ -47,15 +47,49 @@ from .kernels import build
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 _count_lock = threading.Lock()
+# what a CUDA graph's capture counts as its own (train/step.py): the
+# capturing thread's launches, and any thread's made on a stream while it
+# captured — autograd runs the backward on a thread of its own, on the
+# capturing stream; captures run one at a time. Not the daemon's other
+# threads', which launch meanwhile on their own streams
+_thread = threading.local()
+_captured = [0, 0]
 
 
 def add_launches(fwd: int, bwd: int) -> None:
-    """Count ``fwd`` forward and ``bwd`` backward launches made other than
-    by a wrapper's own call: a replayed graph's (train/packed.py)."""
+    """Count ``fwd`` forward and ``bwd`` backward launches: a wrapper's
+    own, or a replayed graph's (train/step.py), in the process's counters
+    and the calling thread's (:func:`own_launches`)."""
     global LAUNCHES, BWD_LAUNCHES
     with _count_lock:
         LAUNCHES += fwd
         BWD_LAUNCHES += bwd
+    counts = getattr(_thread, "counts", (0, 0))
+    _thread.counts = (counts[0] + fwd, counts[1] + bwd)
+
+
+def _count(fwd: int, bwd: int) -> None:
+    """A wrapper's launch; on a stream that is capturing a graph, the
+    capture's."""
+    global LAUNCHES, BWD_LAUNCHES
+    if not torch.cuda.is_current_stream_capturing():
+        add_launches(fwd, bwd)
+        return
+    with _count_lock:
+        LAUNCHES += fwd
+        BWD_LAUNCHES += bwd
+        _captured[0] += fwd
+        _captured[1] += bwd
+
+
+def own_launches() -> tuple:
+    """``(forward, backward)`` launches a capture on the calling thread
+    counts as its own: the thread's, and those made on a capturing
+    stream."""
+    counts = getattr(_thread, "counts", (0, 0))
+    with _count_lock:
+        return counts[0] + _captured[0], counts[1] + _captured[1]
+
 
 # dynamic shared memory a block may use on Hopper (227 KB)
 SMEM_LIMIT_BYTES = 232448
@@ -353,7 +387,6 @@ def ffm_fused(table: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor,
     if not _on_cuda(table, "ffm_fused"):
         return ffm_fused_reference(table, ids, vals, fields, F, k, spec)
     geo = _check(table, ids, vals, fields, F, k, spec, backward=False)
-    global LAUNCHES
     B, N = ids.shape
     out = torch.empty((B, F * (F + 1) // 2), dtype=torch.float32,
                       device=table.device)
@@ -364,8 +397,7 @@ def ffm_fused(table: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor,
                            fields.data_ptr(), out.data_ptr(), B, N, F, k,
                            slab_mask(spec), *_launch_args(geo, table))
     build.check(lib, rc, "ffm_fused")
-    with _count_lock:
-        LAUNCHES += 1
+    _count(1, 0)
     return out
 
 
@@ -386,7 +418,6 @@ def ffm_fused_bwd(g_out: torch.Tensor, table: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"g_out must be a contiguous float32 [B, {T}] tensor "
                          f"on {table.device}, got {tuple(g_out.shape)} "
                          f"{g_out.dtype} on {g_out.device}")
-    global BWD_LAUNCHES
     d_emb = torch.empty((B, N, F * k), dtype=torch.float32, device=table.device)
     if B == 0 or N == 0:
         return d_emb
@@ -396,8 +427,7 @@ def ffm_fused_bwd(g_out: torch.Tensor, table: torch.Tensor, ids: torch.Tensor,
                                d_emb.data_ptr(), B, N, F, k, slab_mask(spec),
                                *_launch_args(geo, table))
     build.check(lib, rc, "ffm_fused_bwd")
-    with _count_lock:
-        BWD_LAUNCHES += 1
+    _count(0, 1)
     return d_emb
 
 

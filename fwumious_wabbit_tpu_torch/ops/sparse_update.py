@@ -38,14 +38,38 @@ LAUNCHES = 0
 # csrc/sparse_update.cu, which refuses any other value; it sizes the scratch
 TILE = 64
 _count_lock = threading.Lock()
+# what a CUDA graph's capture counts as its own (ops/ffm.py's _thread)
+_thread = threading.local()
+_captured = [0]
 
 
 def add_launches(n: int) -> None:
-    """Count ``n`` launches made other than by a call of
-    :func:`sparse_adagrad_update`: a replayed graph's (train/packed.py)."""
+    """Count ``n`` launches: a call of :func:`sparse_adagrad_update`, or a
+    replayed graph's (train/step.py), in the process's counter and the
+    calling thread's (:func:`own_launches`)."""
     global LAUNCHES
     with _count_lock:
         LAUNCHES += n
+    _thread.count = getattr(_thread, "count", 0) + n
+
+
+def _count(n: int) -> None:
+    """A launch of the kernel; on a stream that is capturing a graph, the
+    capture's."""
+    global LAUNCHES
+    if not torch.cuda.is_current_stream_capturing():
+        add_launches(n)
+        return
+    with _count_lock:
+        LAUNCHES += n
+        _captured[0] += n
+
+
+def own_launches() -> int:
+    """The launches a capture on the calling thread counts as its own: the
+    thread's, and those made on a capturing stream."""
+    with _count_lock:
+        return getattr(_thread, "count", 0) + _captured[0]
 
 
 def _check(w, acc, rid, grows, kind) -> None:
@@ -97,7 +121,6 @@ def sparse_adagrad_update(w: torch.Tensor, acc: torch.Tensor | None,
         raise ValueError(f"sparse_adagrad_update launches on the current "
                          f"device cuda:{torch.cuda.current_device()}, not "
                          f"{w.device}")
-    global LAUNCHES
     K = rid.shape[0]
     if K == 0:
         return w, acc
@@ -115,6 +138,5 @@ def sparse_adagrad_update(w: torch.Tensor, acc: torch.Tensor | None,
         w.shape[0], K, TILE, kind, ctypes.c_float(lr),
         ctypes.c_float(power_t), stream)
     build.check(lib, rc, "sparse_adagrad_update")
-    with _count_lock:
-        LAUNCHES += 1
+    _count(1)
     return w, acc

@@ -43,7 +43,14 @@ RELEASE_WAIT_S = 5.0
 class SharedPredictor:
     """The device model behind the daemon, hot-swappable. A swap takes only
     a file of the served configuration (``model_file.serving_layout`` of
-    ``mi`` and ``vw``): the connections' translators were built for it."""
+    ``mi`` and ``vw``): the connections' translators were built for it.
+
+    Each model has its own predict step — on the card one CUDA graph per
+    batch signature (train/step.py ``make_predict_step``) — and a lock
+    around its copy-in, replay and the copy of its output, since a graph
+    owns its inputs and its output; the device→host copy and its wait
+    run outside the lock. A swapped-out model's graphs and pools are
+    released once its last prediction in flight returns."""
 
     def __init__(self, mi, vw, model: FwModel, batch_size: int = 256):
         self.mi = mi
@@ -54,6 +61,14 @@ class SharedPredictor:
         self._holding: dict[int, int] = {}
         self._released = threading.Condition(self._lock)
         self._current = (model, make_predict_step(model))
+        # around the current step's copy-in, replay and output copy
+        self._step_lock = threading.Lock()
+        # the steps of swapped-out models still predicting, by the count of
+        # swaps their predictions began under
+        self._retired: dict[int, object] = {}
+        # the predict graphs' counts and signatures of released models
+        self._done_counts: dict = {}
+        self._done_signatures: set = set()
         self.batcher = Batcher(batch_size)
         self.swaps = 0
         # on a card: the bytes allocated once ``swaps`` swaps were made
@@ -66,9 +81,10 @@ class SharedPredictor:
     def note_resident(self) -> None:
         """Record the card's allocated bytes under the count of swaps made
         so far, once no prediction that began before the last swap is in
-        flight: then no snapshot holds an earlier model. Called as a swap
-        starts and as the daemon ends; no reading when such a prediction is
-        still in flight after RELEASE_WAIT_S."""
+        flight: then no snapshot holds an earlier model, and its graphs
+        are released. Called as a swap starts and as the daemon ends; no
+        reading when such a prediction is still in flight after
+        RELEASE_WAIT_S."""
         device = self.model.lr_w.device
         if device.type != "cuda":
             return
@@ -83,8 +99,35 @@ class SharedPredictor:
         model = model_file.hogwild_load(path, self._layout,
                                         device=self.model.lr_w.device)
         with self._lock:
+            old = self._current[1]
             self._current = (model, make_predict_step(model))
+            self._step_lock = threading.Lock()
+            if self._holding.get(self.swaps):
+                self._retired[self.swaps] = old
+            else:
+                self._release(old)
             self.swaps += 1
+
+    def _release(self, step) -> None:
+        """Release a swapped-out model's graphs and pools, keeping their
+        counts; under ``self._lock``."""
+        step.release()
+        for k, v in step.counts.items():
+            self._done_counts[k] = self._done_counts.get(k, 0) + v
+        self._done_signatures.update(step.graphs)
+
+    def graph_counts(self) -> dict:
+        """The predict steps' counts over every model served
+        (``graph_captures``, ``graph_replays``, ``eager_batches`` and their
+        host seconds) and ``signatures``, the distinct batch signatures
+        they met."""
+        with self._lock:
+            step = self._current[1]
+            out = dict(self._done_counts)
+            for k, v in step.counts.items():
+                out[k] = out.get(k, 0) + v
+            out["signatures"] = len(self._done_signatures | set(step.graphs))
+        return out
 
     def predict_examples(self, examples) -> np.ndarray:
         """Predict translated examples of any count, in chunks of
@@ -93,7 +136,7 @@ class SharedPredictor:
         if not examples:
             return np.zeros(0, np.float32)
         with self._lock:
-            gen, step = self.swaps, self._current[1]  # snapshot
+            gen, step, step_lock = self.swaps, self._current[1], self._step_lock
             self._holding[gen] = self._holding.get(gen, 0) + 1
         try:
             bs = self.batcher.batch_size
@@ -101,7 +144,11 @@ class SharedPredictor:
             for i in range(0, len(examples), bs):
                 chunk = examples[i : i + bs]
                 batch = self.batcher.make_batch(chunk, pad_to_batch=True)
-                outs.append(step(batch_dict(batch)).cpu().numpy()[: len(chunk)])
+                with step_lock:
+                    # the next replay overwrites the graph's output: copy
+                    # it on the stream first
+                    out = step(batch_dict(batch)).clone()
+                outs.append(out.cpu().numpy()[: len(chunk)])
             return outs[0] if len(outs) == 1 else np.concatenate(outs)
         finally:
             del step
@@ -109,6 +156,10 @@ class SharedPredictor:
                 self._holding[gen] -= 1
                 if not self._holding[gen]:
                     del self._holding[gen]
+                    retired = self._retired.pop(gen, None)
+                    if retired is not None:
+                        self._release(retired)
+                        del retired
                     self._released.notify_all()
 
 

@@ -35,7 +35,12 @@ replayed as one CUDA graph (the JAX CLI's jitted ``lax.scan``; a graph that
 fails ends the run with exit 1); one prediction fetch per superbatch, copied back
 without blocking and written by the writer thread once its event has
 completed. ``-t`` sends its batches one at a time through the same copy
-stage. The daemon parses in Python. ``--fwt_bitpack``, ``--fwt_vocab``,
+stage. Every batch that is not packed — ``-t``, holdout, delayed learning,
+``--fwt_exact``, ``--fwt_no_native``, a partial or tail batch — runs the
+per-batch train or predict step, on the card one CUDA graph per batch
+signature after that signature's first batch ran step by step (the JAX
+CLI's jitted steps, train/step.py ``BatchStep``; a graph that fails ends
+the run with exit 1). The daemon parses in Python. ``--fwt_bitpack``, ``--fwt_vocab``,
 ``--fwt_pack_cache`` and ``--fwt_fetch_stack`` keep their meaning. ``--fwt_no_native`` chooses the
 Python parser instead (the JAX CLI's fallback path). Unlike the JAX CLI,
 which quietly trains on the Python path when its C++ library does not load,
@@ -65,12 +70,13 @@ sparse update kernel always runs).
 
 ``FWT_PIPELINE_DEPTH`` bounds the prediction fetches in flight to the
 writer (default 3); ``FWT_COUNTERS_OUT=<path>`` writes the run's examples,
-elapsed seconds and in-run counters as JSON, with the kernels' launches,
+elapsed seconds and in-run counters as JSON (the packed graphs' and, as
+``train_*`` and ``predict_*``, the per-batch graphs'), with the kernels' launches,
 the files it wrote, the card's peak memory and, under a mesh, the process
 group's set-up seconds and the sharded steps' collective bytes. The
 device-engine daemon writes its launches, its hot swaps, the card's
-allocated bytes after each swap and its peak memory there when SIGTERM (or
-Ctrl-C) ends it.
+allocated bytes after each swap, its predict graphs' counts and its peak
+memory there when SIGTERM (or Ctrl-C) ends it.
 """
 
 from __future__ import annotations
@@ -99,7 +105,7 @@ from ..ingest import (
 )
 from ..utils.device import NoDeviceError, resolve_device
 from ..utils.logging import get_logger
-from .packed import GraphError
+from .step import GraphError
 from .predict import PredictionWriter, native_predict_eligible
 
 log = get_logger(__name__)
@@ -293,8 +299,8 @@ def _to_host(preds: torch.Tensor):
     of the JAX loop's ``copy_to_host_async``). On the CPU a plain copy, so
     a later in-place write (the fetch ring) cannot reach it. The copy is
     enqueued on the current stream before this returns, so a later write
-    to ``preds`` on that stream (the next replay of a packed step's CUDA
-    graph, which owns its output) cannot overtake it."""
+    to ``preds`` on that stream (the next replay of a step's CUDA graph,
+    which owns its output) cannot overtake it."""
     if preds.device.type != "cuda":
         return preds.detach().clone(), None
     host = torch.empty(preds.shape, dtype=preds.dtype, pin_memory=True)
@@ -343,6 +349,8 @@ class _Run:
         self.writer = PredictionWriter(args.predictions,
                                        bool(args.predictions_stdout))
         if self.mesh is None:
+            # on the card one CUDA graph per batch signature each, the JAX
+            # loop's jitted steps
             self.train_step = None if self.testonly else make_train_step(model)
             self.predict_step = make_predict_step(model)
         else:
@@ -498,6 +506,12 @@ class _Run:
         if self.train_step is not None:
             for bd, _n in self.delayed:
                 self.train_step(bd)
+        if self.mesh is None:
+            # the per-batch steps' graphs, apart from the packed ones
+            for kind in ("train", "predict"):
+                step = getattr(self, kind + "_step")
+                if step is not None:
+                    self.ctr.update({f"{kind}_{k}": v for k, v in step.counts.items()})
         self.close()
         if self.werr:
             raise self.werr[0]
@@ -802,7 +816,8 @@ def main(argv=None) -> int:
         if srv.predictor is not None:
             srv.predictor.note_resident()
             result = {"hogwild_loads": srv.predictor.swaps,
-                      "resident_bytes_after_swap": srv.predictor.resident_bytes}
+                      "resident_bytes_after_swap": srv.predictor.resident_bytes,
+                      "predict_graphs": srv.predictor.graph_counts()}
             _add_run_facts(result, srv.predictor.model, None)
             _write_counters(result)
         return 0

@@ -22,13 +22,18 @@ src/main.rs:213-270).
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..ops import ffm, sparse_update
+from .step import (  # noqa: F401 (GraphError: raised through here)
+    CudaGraphCapturer,
+    GraphError,
+    _GraphedStep,
+    _timed,
+    train_step_fn,
+)
 
 # numpy dtype of a packed field → the torch dtype unpack_row views it as.
 # u32 fields are held as their int32 bit pattern: torch's unsigned 32-bit
@@ -910,162 +915,44 @@ def graph_counts(model) -> dict:
     return counts
 
 
-def _timed(counts: dict, key: str, fn, *args):
-    """``fn(*args)``, its host seconds added to ``counts[key]``."""
-    t0 = time.perf_counter()
-    try:
-        return fn(*args)
-    finally:
-        counts[key] += time.perf_counter() - t0
-
-
-class GraphError(RuntimeError):
-    """A packed step's CUDA graph failed to capture or to replay, or the
-    tables it updates were rebound since its capture. The run ends: the
-    superbatch is never run again step by step."""
-
-
-def _launch_counts() -> tuple:
-    return ffm.LAUNCHES, ffm.BWD_LAUNCHES, sparse_update.LAUNCHES
-
-
-def _add_launches(n: tuple) -> None:
-    """Add ``(forward, backward, update)`` launches to the kernels'
-    counters."""
-    ffm.add_launches(n[0], n[1])
-    sparse_update.add_launches(n[2])
-
-
-def _table_ptrs(model) -> tuple:
-    """The addresses of every tensor the train step updates in place: the
-    tables, their accumulators and the tower's tensors."""
-    params = model.params()
-    tensors = [v for k, v in params.items() if k not in ("nn", "final")]
-    for layer in [*params.get("nn", ()), params.get("final", {})]:
-        tensors += layer.values()
-    return tuple(t.data_ptr() for t in tensors)
-
-
-class CudaGraphCapturer:
-    """Captures the launches of a function as one CUDA graph."""
-
-    def capture(self, fn) -> tuple:
-        """``(replay, out)``: ``fn()`` captured on a side stream, and not
-        run; ``replay()`` launches the whole graph on the current stream,
-        and ``out`` is what ``fn`` returned, written by every replay.
-
-        The capture is ``thread_local``: while the consumer captures, the
-        transfer thread allocates device memory and waits on events, and
-        the writer thread waits on events. Under the default ``global``
-        mode such a call from any thread is a capture error; here only the
-        capturing thread's own are."""
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            out = fn()
-        return graph.replay, out
-
-
-# the captured graphs a model keeps at once: a run's steady (layout, K) and
-# the tail (K' < K) that recurs once per pass of a multi-pass run. A layout
-# that a vocabulary re-signature replaced never comes back, and each graph
-# holds its own memory pool, so the least recently replayed graph beyond
-# these is released; should its (layout, K) come back, it is captured anew.
+# the captured packed-step graphs a model keeps at once: a run's steady
+# (layout, K) and the tail (K' < K) that recurs once per pass of a
+# multi-pass run. A layout that a vocabulary re-signature replaced never
+# comes back, and each graph holds its own memory pool, so the least
+# recently replayed graph beyond these is released; should its (layout, K)
+# come back, it is captured anew.
 _LIVE_GRAPHS = 2
 
 
 def _live_graphs(model) -> list:
-    """The model's captured graphs, the least recently replayed first."""
+    """The model's captured packed-step graphs, the least recently replayed
+    first."""
     live = getattr(model, "_live_graphs", None)
     if live is None:
         live = model._live_graphs = []
     return live
 
 
-class _GraphedStep:
-    """One (layout, K)'s packed step, as a jitted ``lax.scan`` is traced on
-    its first call and replayed after: its first superbatch runs step by
-    step (it builds the plan, the kernels, the LUT table and the geometry
-    caches, none of which a capture may do), its second is captured as one
-    graph and replayed, and every later one is replayed. A model keeps at
-    most ``_LIVE_GRAPHS`` graphs: capturing another releases the least
-    recently replayed one, graph, pool and buffers.
-
-    The graph owns its inputs — a copy of the ``[K, words]`` buffer and of
-    the vocabulary snapshot — and its ``[K, B]`` output: each superbatch is
-    copied into the inputs on the current stream and the graph replayed
-    there. The output is overwritten by the next replay, so a caller
-    copies it out (the loop's prediction fetch, the ring) on the same
-    stream first. The graph reads and writes the model's tables at their
-    capture-time addresses: a replay checks them and raises if one was
-    rebound. The kernels' launch counters add what the graph launches at
-    each replay, and nothing for the capture, which launches nothing."""
+class _PackedGraphedStep(_GraphedStep):
+    """One (layout, K)'s packed step as train/step.py ``_GraphedStep`` (the
+    JAX version's jitted ``lax.scan``), called as the step-by-step packed
+    step is: its inputs are the ``[K, words]`` buffer and the vocabulary
+    snapshot, its output the ``[K, B]`` predictions."""
 
     def __init__(self, model, layout: PackedLayout, K: int, eager, capturer):
-        self.model, self.eager, self.capturer = model, eager, capturer
-        self.name = f"layout {layout.signature!r}, K={K}"
-        self.seen = False
-        self.graph_replay = None
+        super().__init__(model, "the packed step", f"layout {layout.signature!r}, K={K}",
+                         lambda inputs: eager(inputs["buf"], inputs.get("vocab")),
+                         capturer, _live_graphs(model), _LIVE_GRAPHS,
+                         graph_counts(model), "eager_superbatches")
 
     def __call__(self, buf: torch.Tensor, vocab: torch.Tensor | None = None):
-        counts = graph_counts(self.model)
-        if not self.seen:
-            self.seen = True
-            counts["eager_superbatches"] += 1
-            return _timed(counts, "eager_s", self.eager, buf, vocab)
-        live = _live_graphs(self.model)
-        if self.graph_replay is None:
-            while len(live) >= _LIVE_GRAPHS:
-                live.pop(0).release()
-            _timed(counts, "capture_s", self._capture, buf, vocab)
-            counts["graph_captures"] += 1
-        else:
-            live.remove(self)
-        live.append(self)
-        out = _timed(counts, "replay_s", self._replay, buf, vocab)
-        counts["graph_replays"] += 1
-        return out
+        inputs = {"buf": buf} if vocab is None else {"buf": buf, "vocab": vocab}
+        return super().__call__(inputs)
 
-    def release(self) -> None:
-        """Drop the graph and what it owns. Its pool is returned to the
-        card (``empty_cache``), so that the allocator's reserved memory
-        stays bounded; that waits for the card, and happens at most once
-        per capture."""
-        self.graph_replay = self.buf = self.vocab = self.out = None
-        if self.model.lr_w.is_cuda:
-            torch.cuda.empty_cache()
-
-    def _replay(self, buf: torch.Tensor, vocab: torch.Tensor | None):
-        if _table_ptrs(self.model) != self.ptrs:
-            raise GraphError(f"the packed step's CUDA graph ({self.name}) "
-                             f"updates tables that were rebound after its "
-                             f"capture: a replay would write freed memory")
-        self.buf.copy_(buf)
-        if vocab is not None:
-            self.vocab.copy_(vocab)
-        try:
-            self.graph_replay()
-        except RuntimeError as e:
-            raise GraphError(f"the packed step's CUDA graph ({self.name}) "
-                             f"failed to replay: {e}") from e
-        _add_launches(self.launches)
-        return self.out
-
-    def _capture(self, buf: torch.Tensor, vocab: torch.Tensor | None) -> None:
-        self.buf = buf.clone()
-        self.vocab = None if vocab is None else vocab.clone()
-        before = _launch_counts()
-        try:
-            self.graph_replay, self.out = self.capturer.capture(
-                lambda: self.eager(self.buf, self.vocab))
-        except RuntimeError as e:
-            raise GraphError(f"the packed step's CUDA graph ({self.name}) "
-                             f"failed to capture: {e}") from e
-        finally:
-            # the wrappers counted the launches they captured; none ran
-            captured = tuple(a - b for a, b in zip(_launch_counts(), before))
-            _add_launches(tuple(-n for n in captured))
-        self.launches = captured
-        self.ptrs = _table_ptrs(self.model)
+    @property
+    def buf(self):
+        """The graph's own ``[K, words]`` input (None once released)."""
+        return None if self.inputs is None else self.inputs["buf"]
 
 
 def make_packed_train_step(model, layout: PackedLayout, K: int,
@@ -1074,22 +961,20 @@ def make_packed_train_step(model, layout: PackedLayout, K: int,
     ``(layout.signature, K)`` as the JAX version caches its jit.
 
     Unpacks the superbatch once, then runs K train steps one after the
-    other (train/step.py ``make_train_step``, the same step the per-batch
-    path runs), each updating the model's tables in place; the result is
+    other (train/step.py ``train_step_fn``, the step the per-batch path
+    graphs on its own), each updating the model's tables in place; the result is
     the K steps' predictions. ``vocab`` is the [n_rows, 128] i32 snapshot,
     required when the layout carries a vocab spec.
 
     On the card the K steps run as one CUDA graph from the second
-    superbatch of a (layout, K) on (:class:`_GraphedStep`; the JAX
+    superbatch of a (layout, K) on (:class:`_PackedGraphedStep`; the JAX
     version's jitted ``lax.scan``), and the result is the graph's output,
     overwritten by its next replay. On the CPU, and with ``graph=False``,
     they run step by step from Python. ``capturer`` stands in for
     :class:`CudaGraphCapturer` (tests)."""
 
     def build():
-        from .step import make_train_step
-
-        step = make_train_step(model)
+        step = train_step_fn(model)
         plan = _Plan(layout, model.lr_w.device)
 
         def packed_steps(buf: torch.Tensor, vocab: torch.Tensor | None = None):
@@ -1098,8 +983,8 @@ def make_packed_train_step(model, layout: PackedLayout, K: int,
                                 for i in range(K)])
 
         if graph and (capturer is not None or model.lr_w.device.type == "cuda"):
-            return _GraphedStep(model, layout, K, packed_steps,
-                                capturer or CudaGraphCapturer())
+            return _PackedGraphedStep(model, layout, K, packed_steps,
+                                      capturer or CudaGraphCapturer())
 
         def eager_steps(buf: torch.Tensor, vocab: torch.Tensor | None = None):
             counts = graph_counts(model)

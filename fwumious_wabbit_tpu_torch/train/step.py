@@ -11,11 +11,14 @@ the old dense weights, as JAX's functional update does."""
 
 from __future__ import annotations
 
+import threading
+import time
+
 import numpy as np
 import torch
 
 from ..models.model import FwModel, normalize_train, predict_prob
-from ..ops import ffm, tables
+from ..ops import ffm, sparse_update, tables
 
 # the Batch arrays the forward pass reads
 INPUT_KEYS = ("lr_ids", "lr_vals", "lr_combos", "ffm_ids", "ffm_vals",
@@ -51,11 +54,10 @@ def to_device(batch: dict, keys, device) -> dict:
     return out
 
 
-def make_predict_step(model: FwModel):
-    """``step(batch) -> probabilities [B]`` (a tensor on the model's
-    device). ``batch`` is the host dict of a ``Batcher`` batch
-    (fwumious_wabbit_tpu/train/loop.py ``_batch_dict``); its input arrays
-    are copied host→device on each call."""
+def predict_step_fn(model: FwModel):
+    """``step(batch) -> probabilities [B]``, run from Python: the host
+    arrays of ``batch`` copied host→device (device tensors pass through),
+    the forward under ``torch.inference_mode``."""
     device = model.lr_w.device
 
     def predict_step(batch: dict) -> torch.Tensor:
@@ -64,6 +66,23 @@ def make_predict_step(model: FwModel):
             return model.predict(bd)
 
     return predict_step
+
+
+def make_predict_step(model: FwModel, graph: bool = True, capturer=None):
+    """``step(batch) -> probabilities [B]`` (a tensor on the model's
+    device) — the JAX package's jitted predict step
+    (fwumious_wabbit_tpu/train/step.py:340-350). ``batch`` is the host dict
+    of a ``Batcher`` batch (fwumious_wabbit_tpu/train/loop.py
+    ``_batch_dict``) or a dict of device tensors.
+
+    On the card the step is one CUDA graph per batch signature
+    (:class:`BatchStep`, captured under ``torch.inference_mode``), kept
+    apart from the train step's; its result is the graph's output,
+    overwritten by the next replay. On the CPU, and with ``graph=False``,
+    it runs from Python. ``capturer`` stands in for
+    :class:`CudaGraphCapturer` (tests)."""
+    return BatchStep(model, "the predict step", predict_step_fn(model),
+                     INPUT_KEYS, graph, capturer)
 
 
 # -- the train step's stages (one after the other in make_train_step; apart
@@ -281,13 +300,14 @@ def ffm_update_rows(model: FwModel, bd: dict, g_emb: torch.Tensor):
     return rid, grows, pre_scaled
 
 
-def make_train_step(model: FwModel):
+def train_step_fn(model: FwModel):
     """``step(batch) -> probabilities [B]``: the forward values before the
-    update, as a tensor on the model's device. The step updates the model's
-    weights in place: gather, forward, the clamped logloss gradient, the
-    tower's manual backward, the backward to the gathered weights, the
-    tower's dense update, per-example dedup, the batch-mean cap and the
-    sparse row update (fwumious_wabbit_tpu/train/step.py:161-337).
+    update, as a tensor on the model's device, run from Python. The step
+    updates the model's weights in place: gather, forward, the clamped
+    logloss gradient, the tower's manual backward, the backward to the
+    gathered weights, the tower's dense update, per-example dedup, the
+    batch-mean cap and the sparse row update
+    (fwumious_wabbit_tpu/train/step.py:161-337).
 
     ``batch`` is a host dict as :func:`train_batch_dict` gives, optionally
     with ``lr_counts``/``ffm_counts`` (the host's multiplicity codes), or
@@ -312,3 +332,253 @@ def make_train_step(model: FwModel):
         return p
 
     return train_step
+
+
+def make_train_step(model: FwModel, graph: bool = True, capturer=None):
+    """``step(batch) -> probabilities [B]``: :func:`train_step_fn`, the
+    JAX package's jitted train step (fwumious_wabbit_tpu/train/step.py:
+    333-337). On the card it is one CUDA graph per batch signature
+    (:class:`BatchStep`): the tables are updated in place at their
+    capture-time addresses, the port's form of ``donate_argnums=(0,)``, and
+    the result is the graph's output, overwritten by the next replay, so a
+    caller copies it out on the same stream first. On the CPU, and with
+    ``graph=False``, the step runs from Python. ``capturer`` stands in for
+    :class:`CudaGraphCapturer` (tests)."""
+    return BatchStep(model, "the train step", train_step_fn(model),
+                     TRAIN_KEYS, graph, capturer)
+
+
+# -- one CUDA graph per step and signature: the JAX package's jit --------------
+
+
+class GraphError(RuntimeError):
+    """A step's CUDA graph failed to capture or to replay, or the tables it
+    updates were rebound since its capture. The run ends: the step is never
+    run again step by step."""
+
+
+def _timed(counts: dict, key: str, fn, *args):
+    """``fn(*args)``, its host seconds added to ``counts[key]``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        counts[key] += time.perf_counter() - t0
+
+
+def _launch_counts() -> tuple:
+    """The launches a capture on the calling thread counts as its own so
+    far (its wrappers', the backward's on autograd's thread included),
+    whatever the daemon's other threads launch meanwhile."""
+    return (*ffm.own_launches(), sparse_update.own_launches())
+
+
+def _add_launches(n: tuple) -> None:
+    """Add ``(forward, backward, update)`` launches to the kernels'
+    counters."""
+    ffm.add_launches(n[0], n[1])
+    sparse_update.add_launches(n[2])
+
+
+def _table_ptrs(model) -> tuple:
+    """The addresses of every tensor the train step updates in place: the
+    tables, their accumulators and the tower's tensors."""
+    params = model.params()
+    tensors = [v for k, v in params.items() if k not in ("nn", "final")]
+    for layer in [*params.get("nn", ()), params.get("final", {})]:
+        tensors += layer.values()
+    return tuple(t.data_ptr() for t in tensors)
+
+
+class CudaGraphCapturer:
+    """Captures the launches of a function as one CUDA graph."""
+
+    # one capture, or one return of released pools to the card, at a time
+    # in the process: the daemon's threads capture and release graphs of
+    # their own models, and ``empty_cache`` frees memory (cudaFree) that
+    # must not meet another thread's capture
+    lock = threading.Lock()
+
+    def capture(self, fn) -> tuple:
+        """``(replay, out)``: ``fn()`` captured on a side stream, and not
+        run; ``replay()`` launches the whole graph on the current stream,
+        and ``out`` is what ``fn`` returned, written by every replay.
+
+        The capture is ``thread_local``: while the consumer captures, the
+        transfer thread allocates device memory and waits on events, and
+        the writer thread waits on events. Under the default ``global``
+        mode such a call from any thread is a capture error; here only the
+        capturing thread's own are."""
+        graph = torch.cuda.CUDAGraph()
+        with self.lock, torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = fn()
+        return graph.replay, out
+
+
+def _free_pools(model) -> None:
+    """Return released graphs' pools to the card (``empty_cache``), so that
+    the allocator's reserved memory stays bounded; that waits for the
+    card."""
+    if model.lr_w.is_cuda:
+        with CudaGraphCapturer.lock:
+            torch.cuda.empty_cache()
+
+
+class _GraphedStep:
+    """One signature's step, as a jitted function is traced on its first
+    call and replayed after: its first call runs step by step (it builds
+    the kernels, the LUT table and the geometry caches, none of which a
+    capture may do), its second is captured as one graph and replayed, and
+    every later one is replayed. The graphs of one owner (``live``, the
+    least recently replayed first) are at most ``limit``: capturing another
+    releases the least recently replayed one, graph, pool and buffers.
+
+    The graph owns its inputs — one device tensor per key of the first
+    call's ``inputs`` — and its output: each call copies its inputs in on
+    the current stream (from the host or from the device) and replays the
+    graph there. The output is overwritten by the next replay, so a caller
+    copies it out on the same stream first. The graph reads and writes the
+    model's tables at their capture-time addresses: a replay checks them
+    and raises if one was rebound. The kernels' launch counters add what
+    the graph launches at each replay, and nothing for the capture, which
+    launches nothing. ``counts`` takes ``graph_captures``,
+    ``graph_replays``, ``eager_key`` (the calls run step by step) and the
+    host seconds of each, ``capture_s``, ``replay_s`` and ``eager_s``."""
+
+    def __init__(self, model, what: str, name: str, eager, capturer,
+                 live: list, limit: int, counts: dict, eager_key: str):
+        self.model, self.eager, self.capturer = model, eager, capturer
+        self.what, self.name = what, name
+        self.live, self.limit = live, limit
+        self.counts, self.eager_key = counts, eager_key
+        self.seen = False
+        self.graph_replay = self.inputs = self.out = None
+
+    def __call__(self, inputs: dict):
+        counts = self.counts
+        if not self.seen:
+            self.seen = True
+            counts[self.eager_key] += 1
+            return _timed(counts, "eager_s", self.eager, inputs)
+        if self.graph_replay is None:
+            while len(self.live) >= self.limit:
+                self.live.pop(0).release()
+            _timed(counts, "capture_s", self._capture, inputs)
+            counts["graph_captures"] += 1
+        else:
+            self.live.remove(self)
+        self.live.append(self)
+        out = _timed(counts, "replay_s", self._replay, inputs)
+        counts["graph_replays"] += 1
+        return out
+
+    def drop(self) -> None:
+        """Drop the graph and what it owns; should its signature come back,
+        it is captured anew."""
+        self.graph_replay = self.inputs = self.out = None
+
+    def release(self) -> None:
+        """:meth:`drop`, and its pool returned to the card."""
+        self.drop()
+        _free_pools(self.model)
+
+    def _error(self, what: str, e) -> GraphError:
+        return GraphError(f"{self.what}'s CUDA graph ({self.name}) {what}: {e}")
+
+    def _replay(self, inputs: dict):
+        if _table_ptrs(self.model) != self.ptrs:
+            raise self._error("updates tables that were rebound after its "
+                              "capture", "a replay would write freed memory")
+        for key, value in inputs.items():
+            self.inputs[key].copy_(value)
+        try:
+            self.graph_replay()
+        except RuntimeError as e:
+            raise self._error("failed to replay", e) from e
+        _add_launches(self.launches)
+        return self.out
+
+    def _capture(self, inputs: dict) -> None:
+        device = self.model.lr_w.device
+        self.inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                       for k, v in inputs.items()}
+        before = _launch_counts()
+        try:
+            self.graph_replay, self.out = self.capturer.capture(
+                lambda: self.eager(dict(self.inputs)))
+        except RuntimeError as e:
+            raise self._error("failed to capture", e) from e
+        finally:
+            # the wrappers counted the launches they captured; none ran
+            captured = tuple(a - b for a, b in zip(_launch_counts(), before))
+            _add_launches(tuple(-n for n in captured))
+        self.launches = captured
+        self.ptrs = _table_ptrs(self.model)
+
+
+# the captured graphs of one per-batch step at once. A run meets a few
+# batch signatures: the Python batcher's power-of-two width buckets, the
+# C++ ingest's widths growing to their high-water mark, the slim batches'
+# key sets, a padded partial batch; each graph holds its own pool, so the
+# least recently replayed graph beyond these is released
+LIVE_STEP_GRAPHS = 8
+
+
+def signature(inputs: dict) -> tuple:
+    """The batch signature a step is captured for: the sorted ``(key,
+    shape, dtype)`` of the arrays it reads."""
+    return tuple(sorted((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
+
+
+def _as_tensor(v) -> torch.Tensor:
+    return (v if isinstance(v, torch.Tensor)
+            else torch.from_numpy(np.ascontiguousarray(v)))
+
+
+class BatchStep:
+    """A per-batch step (``fn``, which reads the arrays under ``keys``):
+    on the card one :class:`_GraphedStep` per batch signature, at most
+    :data:`LIVE_STEP_GRAPHS` of them captured at once; on the CPU, and
+    with ``graph=False``, ``fn`` run from Python. ``counts`` holds the
+    step's ``graph_captures``, ``graph_replays``, ``eager_batches`` (the
+    batches run step by step: each signature's first, and every one
+    without graphs) and the host seconds of each (``capture_s``,
+    ``replay_s``, ``eager_s``)."""
+
+    def __init__(self, model, what: str, fn, keys: tuple, graph: bool,
+                 capturer=None):
+        self.model, self.what, self.fn, self.keys = model, what, fn, keys
+        self.graphed = graph and (capturer is not None
+                                  or model.lr_w.device.type == "cuda")
+        self.capturer = capturer or CudaGraphCapturer()
+        self.counts = {"graph_captures": 0, "graph_replays": 0,
+                       "eager_batches": 0, "capture_s": 0.0, "replay_s": 0.0,
+                       "eager_s": 0.0}
+        self.graphs: dict = {}  # signature → _GraphedStep
+        self.live: list = []  # the captured ones, least recently replayed first
+
+    def __call__(self, batch: dict) -> torch.Tensor:
+        if not self.graphed:
+            self.counts["eager_batches"] += 1
+            return _timed(self.counts, "eager_s", self.fn, batch)
+        inputs = {k: _as_tensor(batch[k]) for k in self.keys
+                  if batch.get(k) is not None}
+        sig = signature(inputs)
+        step = self.graphs.get(sig)
+        if step is None:
+            name = "signature " + ", ".join(
+                f"{k} {list(shape)} {str(dtype).replace('torch.', '')}"
+                for k, shape, dtype in sig)
+            step = self.graphs[sig] = _GraphedStep(
+                self.model, self.what, name, self.fn, self.capturer, self.live,
+                LIVE_STEP_GRAPHS, self.counts, "eager_batches")
+        return step(inputs)
+
+    def release(self) -> None:
+        """Release every captured graph and return their pools to the
+        card: the step is done with (the daemon's retired model)."""
+        if self.live:
+            for step in self.live:
+                step.drop()
+            self.live.clear()
+            _free_pools(self.model)
