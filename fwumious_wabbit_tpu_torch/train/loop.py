@@ -71,12 +71,17 @@ sparse update kernel always runs).
 ``FWT_PIPELINE_DEPTH`` bounds the prediction fetches in flight to the
 writer (default 3); ``FWT_COUNTERS_OUT=<path>`` writes the run's examples,
 elapsed seconds and in-run counters as JSON (the packed graphs' and, as
-``train_*`` and ``predict_*``, the per-batch graphs'), with the kernels' launches,
+``train_*`` and ``predict_*``, the per-batch graphs'; ``graph_releases``
+and ``graph_release_s``, the graphs this run released, packed and
+per-batch, and the seconds that took; ``pass_open_s`` and
+``pass_close_s``, the run's edges, :class:`_Run`), with the kernels' launches,
 the files it wrote, the card's peak memory and, under a mesh, the process
 group's set-up seconds and the sharded steps' collective bytes. The
 device-engine daemon writes its launches, its hot swaps, the card's
 allocated bytes after each swap, its predict graphs' counts and its peak
-memory there when SIGTERM (or Ctrl-C) ends it.
+memory there when SIGTERM (or Ctrl-C) ends it. Each timed counter of the
+training loop is a span too (utils/spans.py): a ``fwt.*`` range in the
+trace of a profiler that records it.
 """
 
 from __future__ import annotations
@@ -105,6 +110,7 @@ from ..ingest import (
 )
 from ..utils.device import NoDeviceError, resolve_device
 from ..utils.logging import get_logger
+from ..utils.spans import span
 from .step import GraphError
 from .predict import PredictionWriter, native_predict_eligible
 
@@ -224,14 +230,15 @@ def build_cache_without_training(args, vw) -> int:
 
 
 class _ProfileWindow:
-    """``--fwt_profile DIR``: a torch.profiler trace (CPU, and the card's
-    kernels on CUDA) of a window of the run's dispatches — a single batch's
-    step, or a packed superbatch's K steps — written to
-    ``DIR/fwt_trace_<pid>.json`` in the Chrome trace format. The first
-    dispatch (first use of each kernel and allocation) is left out, the
-    next :attr:`STEPS` are traced; a run that ends inside the window writes
-    what it traced (the JAX CLI traces its whole run with jax.profiler,
-    fwumious_wabbit_tpu/train/loop.py:860-877)."""
+    """``--fwt_profile DIR``: a torch.profiler trace of a window of the
+    run's dispatches — a single batch's step, or a packed superbatch's K
+    steps — written to ``DIR/fwt_trace_<pid>.json`` in the Chrome trace
+    format: the CPU ops and ``fwt.*`` spans of every thread (the consumer,
+    the producer, the transfer and writer threads), and the card's kernels
+    and copies on CUDA. The first dispatch (first use of each kernel and
+    allocation) is left out, the next :attr:`STEPS` are traced; a run that
+    ends inside the window writes what it traced (the JAX CLI traces its
+    whole run with jax.profiler, fwumious_wabbit_tpu/train/loop.py:860-877)."""
 
     SKIP = 1
     STEPS = 8
@@ -250,7 +257,10 @@ class _ProfileWindow:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
-            self.prof = torch.profiler.profile(activities=acts)
+            self.prof = torch.profiler.profile(
+                activities=acts,
+                experimental_config=torch._C._profiler._ExperimentalConfig(
+                    profile_all_threads=True))
             self.prof.start()
         elif self.dispatches == self.SKIP + self.STEPS:
             self.close()
@@ -315,20 +325,48 @@ class _Run:
     the steps, the prediction writer thread and its bounded queue
     (``FWT_PIPELINE_DEPTH`` fetches in flight), the delayed-learning queue,
     the example count and the in-run counters — each counter written by
-    its stage's own thread:
+    its stage's own thread, and each timed one by a span of the same name
+    (utils/spans.py):
 
     * producer span ≈ producer_busy_s + producer_stall_s
+      (``fwt.producer.item``, ``fwt.producer.put``)
     * transferrer ≈ xfer_starve_s + xfer_busy_s + xfer_stall_s
-    * consumer ≈ consumer_starve_s + dispatch_s + writer_stall_s
-    * writer ≈ (queue wait) + fetch_force_s + write_s
+      (``fwt.xfer.wait``, ``.copy``, ``.put``)
+    * consumer ≈ pass_open_s + consumer_starve_s + dispatch_s +
+      writer_stall_s + pass_close_s (``fwt.pass.open``,
+      ``fwt.consumer.wait_input``, ``fwt.dispatch.packed`` or ``.batch``
+      with their ``fwt.graph.*`` children, ``fwt.consumer.fetch``,
+      ``fwt.pass.close``)
+    * writer ≈ (queue wait) + fetch_force_s + write_s (``fwt.writer.wait``,
+      ``fwt.writer.write``)
 
+    pass_open_s runs from here to the consumer's first wait for input, and
+    pass_close_s from the end of the stream to :meth:`finish`'s return.
     fetch_force_s is the writer's wait for a prediction copy's event, and
     so for the steps before it: the in-run proxy of the card's busy time
-    (fwumious_wabbit_tpu/train/loop.py:235-342)."""
+    (fwumious_wabbit_tpu/train/loop.py:235-342). graph_releases and
+    graph_release_s count this run's own graph releases, packed and
+    per-batch."""
 
     def __init__(self, args, model):
+        from . import packed
         from .step import make_predict_step, make_train_step
 
+        self.ctr = {
+            "producer_busy_s": 0.0, "producer_stall_s": 0.0,
+            "xfer_starve_s": 0.0, "xfer_busy_s": 0.0, "xfer_stall_s": 0.0,
+            "xfer_bytes": 0, "xfer_puts": 0,
+            "consumer_starve_s": 0.0, "dispatch_s": 0.0,
+            "writer_stall_s": 0.0, "fetch_force_s": 0.0, "fetch_count": 0,
+            "fetch_bytes": 0, "write_s": 0.0,
+            "pass_open_s": 0.0, "pass_close_s": 0.0,
+        }
+        self.opening = span("fwt.pass.open", self.ctr, "pass_open_s").open()
+        self.closing = span("fwt.pass.close", self.ctr, "pass_close_s")
+        # the model's packed graphs count over its life: this run's are
+        # the difference
+        self.packed_releases = packed.release_counts(model)
+        self.packed_releases0 = dict(self.packed_releases)
         self.profile = (_ProfileWindow(args.fwt_profile, model.lr_w.device)
                         if args.fwt_profile else None)
         self.testonly = bool(args.testonly)
@@ -368,14 +406,6 @@ class _Run:
         self.delayed: list = []  # (batch dict, n) awaiting training
         self.delayed_examples = 0
         self.example_num = 0
-        self.ctr = {
-            "producer_busy_s": 0.0, "producer_stall_s": 0.0,
-            "xfer_starve_s": 0.0, "xfer_busy_s": 0.0, "xfer_stall_s": 0.0,
-            "xfer_bytes": 0, "xfer_puts": 0,
-            "consumer_starve_s": 0.0, "dispatch_s": 0.0,
-            "writer_stall_s": 0.0, "fetch_force_s": 0.0, "fetch_count": 0,
-            "fetch_bytes": 0, "write_s": 0.0,
-        }
         self.wq: queue.Queue = queue.Queue(
             maxsize=int(os.environ.get("FWT_PIPELINE_DEPTH", "3")))
         self.werr: list = []
@@ -422,19 +452,17 @@ class _Run:
         try:
             while (item := self.wq.get()) is not None:
                 host, ev, metas = item
-                t1 = time.perf_counter()
-                if ev is not None:
-                    ev.synchronize()
-                arr = host.numpy()
-                ctr["fetch_force_s"] += time.perf_counter() - t1
+                with span("fwt.writer.wait", ctr, "fetch_force_s"):
+                    if ev is not None:
+                        ev.synchronize()
+                    arr = host.numpy()
                 ctr["fetch_count"] += 1
                 ctr["fetch_bytes"] += arr.nbytes
-                t1 = time.perf_counter()
-                arr = arr.reshape(len(metas), -1)
-                for row, (first_num, n) in zip(arr, metas):
-                    skip = max(0, self.predictions_after - first_num + 1)
-                    self.writer.write_block(row[:n][skip:])
-                ctr["write_s"] += time.perf_counter() - t1
+                with span("fwt.writer.write", ctr, "write_s"):
+                    arr = arr.reshape(len(metas), -1)
+                    for row, (first_num, n) in zip(arr, metas):
+                        skip = max(0, self.predictions_after - first_num + 1)
+                        self.writer.write_block(row[:n][skip:])
         except BaseException as e:  # noqa: BLE001 — re-raised on the main thread
             self.werr.append(e)
             while self.wq.get() is not None:  # unblock the consumer
@@ -446,9 +474,8 @@ class _Run:
     def fetch(self, preds: torch.Tensor, metas: list) -> None:
         """Pass predictions for the segments ``metas`` (first example
         number, count) to the writer; blocks when the pipeline is full."""
-        t1 = time.perf_counter()
-        self.wq.put((*_to_host(preds), metas))
-        self.ctr["writer_stall_s"] += time.perf_counter() - t1
+        with span("fwt.consumer.fetch", self.ctr, "writer_stall_s"):
+            self.wq.put((*_to_host(preds), metas))
         if self.werr:
             raise self.werr[0]
 
@@ -468,23 +495,24 @@ class _Run:
             from ..parallel import mesh as pmesh
 
             bd = pmesh.shard_batch(bd, self.mesh, self.both_axes)
-        t1 = time.perf_counter()
         if self.delay == 0:
-            preds = self.train_step(bd) if update else self.predict_step(bd)
-            self.ctr["dispatch_s"] += time.perf_counter() - t1
+            with span("fwt.dispatch.batch", self.ctr, "dispatch_s"):
+                preds = self.train_step(bd) if update else self.predict_step(bd)
         else:
             # predict with the lagging model, then train what left the
             # queue; the reference's delay path trains every delayed
-            # example, holdout or not (src/main.rs:249-258)
-            preds = self.predict_step(bd)
-            self.delayed.append((bd, n))
-            self.delayed_examples += n
-            while self.delayed and \
-                    self.delayed_examples - self.delayed[0][1] >= self.delay:
-                old_bd, old_n = self.delayed.pop(0)
-                self.delayed_examples -= old_n
-                if self.train_step is not None:
-                    self.train_step(old_bd)
+            # example, holdout or not (src/main.rs:249-258); a span that
+            # feeds no counter
+            with span("fwt.dispatch.batch"):
+                preds = self.predict_step(bd)
+                self.delayed.append((bd, n))
+                self.delayed_examples += n
+                while self.delayed and \
+                        self.delayed_examples - self.delayed[0][1] >= self.delay:
+                    old_bd, old_n = self.delayed.pop(0)
+                    self.delayed_examples -= old_n
+                    if self.train_step is not None:
+                        self.train_step(old_bd)
         self.profile_step()
         if self.mesh is not None:
             # every rank writes the whole stream: gathered here, on the main
@@ -506,12 +534,17 @@ class _Run:
         if self.train_step is not None:
             for bd, _n in self.delayed:
                 self.train_step(bd)
+        releases = {k: v - self.packed_releases0[k]
+                    for k, v in self.packed_releases.items()}
         if self.mesh is None:
             # the per-batch steps' graphs, apart from the packed ones
             for kind in ("train", "predict"):
                 step = getattr(self, kind + "_step")
                 if step is not None:
                     self.ctr.update({f"{kind}_{k}": v for k, v in step.counts.items()})
+                    for k, v in step.releases.items():
+                        releases[k] += v
+        self.ctr.update(releases)
         self.close()
         if self.werr:
             raise self.werr[0]
@@ -527,6 +560,7 @@ class _Run:
             time.thread_time() - self.t0_thread)
         log.info("Elapsed: %.2fs rows: %d (%.0f ex/s)", elapsed,
                  self.example_num, self.example_num / max(elapsed, 1e-9))
+        self.closing.close()
         return {"examples": self.example_num, "elapsed": elapsed,
                 "a2a_dropped": dropped,
                 "counters": dict(self.ctr, elapsed_s=elapsed,
@@ -585,12 +619,14 @@ def _python_ingest(args, mi, vw, run: _Run) -> None:
         pending.clear()
 
     seen = 0
+    run.opening.close()
     for rec in record_stream(args, vw):
         seen += 1
         pending.append(translator.translate(rec))
         if len(pending) >= run.batch_size or (run.cut_at is not None
                                               and seen == run.cut_at):
             flush()
+    run.closing.open()
     flush()
 
 
@@ -670,10 +706,10 @@ def _native_ingest(args, mi, vw, model, run: _Run) -> None:
             ring_metas.clear()
 
     vocab = None  # the [n_rows, 128] i32 dictionary snapshot on the device
+    run.opening.close()
     while True:
-        t1 = time.perf_counter()
-        item = q2.get()
-        ctr["consumer_starve_s"] += time.perf_counter() - t1
+        with span("fwt.consumer.wait_input", ctr, "consumer_starve_s"):
+            item = q2.get()
         if item is None:
             break
         if isinstance(item, BaseException):
@@ -686,29 +722,30 @@ def _native_ingest(args, mi, vw, model, run: _Run) -> None:
             first_num = run.count(gn)
             kk = int(buf.shape[0])  # K' — short tails pack too
             vargs = (vocab,) if lay.vocabs else ()
-            t1 = time.perf_counter()
-            if use_ring and kk == K:
-                if ring is None:
-                    ring = torch.zeros((M, K, batch_size), device=buf.device)
-                packed_mod.make_packed_train_step_ring(model, lay, K, M)(
-                    buf, ring, len(ring_metas), *vargs)
-                ctr["dispatch_s"] += time.perf_counter() - t1
-                run.profile_step()
+            to_ring = use_ring and kk == K
+            if not to_ring:
+                flush_ring()  # a tail: keep the prediction stream in order
+            with span("fwt.dispatch.packed", ctr, "dispatch_s"):
+                if to_ring:
+                    if ring is None:
+                        ring = torch.zeros((M, K, batch_size), device=buf.device)
+                    packed_mod.make_packed_train_step_ring(model, lay, K, M)(
+                        buf, ring, len(ring_metas), *vargs)
+                else:
+                    preds = packed_mod.make_packed_train_step(model, lay, kk)(
+                        buf, *vargs)
+            run.profile_step()
+            if to_ring:
                 ring_metas.append((first_num, gn))
                 if len(ring_metas) == M:
                     flush_ring()
-            else:
-                flush_ring()  # a tail: keep the prediction stream in order
-                preds = packed_mod.make_packed_train_step(model, lay, kk)(
-                    buf, *vargs)
-                ctr["dispatch_s"] += time.perf_counter() - t1
-                run.profile_step()
-                if run.writer.active:
-                    run.fetch(preds, [(first_num, gn)])
+            elif run.writer.active:
+                run.fetch(preds, [(first_num, gn)])
         else:
             _, bd, n, ev = item
             flush_ring()  # keep the prediction stream in order
             run.process({k: arrived(v, ev) for k, v in bd.items()}, n)
+    run.closing.open()
     flush_ring()
     ctr.update(packed_mod.graph_counts(model))
     # the producer writes ctr['producer_busy_s'] in its finally block: join

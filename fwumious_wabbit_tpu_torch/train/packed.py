@@ -27,11 +27,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from .step import (  # noqa: F401 (GraphError: raised through here)
     CudaGraphCapturer,
     GraphError,
     _GraphedStep,
-    _timed,
     train_step_fn,
 )
 
@@ -915,6 +915,18 @@ def graph_counts(model) -> dict:
     return counts
 
 
+def release_counts(model) -> dict:
+    """The model's packed-step graphs released so far (``graph_releases``:
+    a capture beyond the graphs it keeps drops the least recently replayed
+    one and returns its pool to the card) and the host seconds their
+    releases took (``graph_release_s``)."""
+    counts = getattr(model, "_release_counts", None)
+    if counts is None:
+        counts = model._release_counts = {"graph_releases": 0,
+                                          "graph_release_s": 0.0}
+    return counts
+
+
 # the captured packed-step graphs a model keeps at once: a run's steady
 # (layout, K) and the tail (K' < K) that recurs once per pass of a
 # multi-pass run. A layout that a vocabulary re-signature replaced never
@@ -942,8 +954,8 @@ class _PackedGraphedStep(_GraphedStep):
     def __init__(self, model, layout: PackedLayout, K: int, eager, capturer):
         super().__init__(model, "the packed step", f"layout {layout.signature!r}, K={K}",
                          lambda inputs: eager(inputs["buf"], inputs.get("vocab")),
-                         capturer, _live_graphs(model), _LIVE_GRAPHS,
-                         graph_counts(model), "eager_superbatches")
+                         capturer, _live_graphs(model), release_counts(model),
+                         _LIVE_GRAPHS, graph_counts(model), "eager_superbatches")
 
     def __call__(self, buf: torch.Tensor, vocab: torch.Tensor | None = None):
         inputs = {"buf": buf} if vocab is None else {"buf": buf, "vocab": vocab}
@@ -989,7 +1001,8 @@ def make_packed_train_step(model, layout: PackedLayout, K: int,
         def eager_steps(buf: torch.Tensor, vocab: torch.Tensor | None = None):
             counts = graph_counts(model)
             counts["eager_superbatches"] += 1
-            return _timed(counts, "eager_s", packed_steps, buf, vocab)
+            with span("fwt.graph.eager", counts, "eager_s"):
+                return packed_steps(buf, vocab)
 
         return eager_steps
 

@@ -30,6 +30,7 @@ import torch
 
 from ..ingest.reader import create_buffered_input
 from ..utils.logging import get_logger
+from ..utils.spans import span, spanned
 from .packed import _DTYPES
 
 log = get_logger(__name__)
@@ -352,7 +353,9 @@ class SuperbatchProducer:
     """The producer-thread body: drives :func:`native_batch_stream`, slims
     and groups full batches into packed superbatches, manages the vocab
     dictionaries and the adaptive flip, records/replays the pack cache, and
-    feeds the output queue.
+    feeds the output queue. Each item read from the pack cache or the
+    ingest is a span (``fwt.producer.item``), and each put one that feeds
+    ``producer_stall_s`` (``fwt.producer.put``).
 
     Unit-testable without threads: construct with a plain queue-like object
     (anything with ``put``) and call :meth:`run` synchronously
@@ -400,9 +403,8 @@ class SuperbatchProducer:
 
         class _TimedQ:  # count queue backpressure as producer stall
             def put(_self, item):
-                _t = time.perf_counter()
-                _pq.put(item)
-                ctr["producer_stall_s"] += time.perf_counter() - _t
+                with span("fwt.producer.put", ctr, "producer_stall_s"):
+                    _pq.put(item)
 
         pq = _TimedQ()
         _span0 = time.perf_counter()
@@ -410,7 +412,7 @@ class SuperbatchProducer:
         cpu = ctr.setdefault("cpu_s_by_thread", {})
         try:
             if self.pack_iter is not None:
-                for item in self.pack_iter:
+                for item in spanned("fwt.producer.item", self.pack_iter):
                     pq.put(item)
                 pq.put(None)
                 return
@@ -568,9 +570,9 @@ class SuperbatchProducer:
                     # fused sweep, encoding IS the cheap producer mode
                 return res
 
-            stream = native_batch_stream(
+            stream = spanned("fwt.producer.item", native_batch_stream(
                 args, mi, vw, batch_size, self.cut_at, self.count_keys,
-                fused_hook=_fused_hook if fused_enabled else None)
+                fused_hook=_fused_hook if fused_enabled else None))
             _c_mark = time.thread_time()
             for bd, n in stream:
                 _c_now = time.thread_time()
@@ -733,48 +735,42 @@ def run_transferrer(q, q2, ctr: dict, xfer_stats: dict, device):
     :class:`Transferrer` onto ``device``, each passed on with its event,
     with in-window wall and thread-CPU accounting. Busy time is the host
     side of a transfer: the copy into pinned memory and the issue of the
-    non-blocking copy."""
+    non-blocking copy. The wait, the copy and the hand-on of a superbatch
+    are spans (``fwt.xfer.wait``, ``.copy``, ``.put``) that feed their
+    counters and ``xfer_stats``."""
     _cpu0 = time.thread_time()
     cpu = ctr.setdefault("cpu_s_by_thread", {})
     try:
         tr = Transferrer(device)
         while True:
-            _t0 = time.perf_counter()
-            item = q.get()
-            _dt = time.perf_counter() - _t0
-            xfer_stats["starve_s"] += _dt
-            ctr["xfer_starve_s"] += _dt
+            with span("fwt.xfer.wait", ctr, "xfer_starve_s") as t:
+                item = q.get()
+            xfer_stats["starve_s"] += t.seconds
             if item is None or isinstance(item, BaseException):
                 q2.put(item)
                 return
             if item[0] == "p":
                 _, buf, lay, gn = item
-                _t0 = time.perf_counter()
-                (dbuf,), ev = tr.stage([buf])
-                _dt = time.perf_counter() - _t0
-                xfer_stats["xfer_s"] += _dt
+                with span("fwt.xfer.copy", ctr, "xfer_busy_s") as t:
+                    (dbuf,), ev = tr.stage([buf])
+                xfer_stats["xfer_s"] += t.seconds
                 xfer_stats["bytes"] += buf.nbytes
-                ctr["xfer_busy_s"] += _dt
                 ctr["xfer_bytes"] += buf.nbytes
                 ctr["xfer_puts"] += 1
-                _t0 = time.perf_counter()
-                q2.put(("p", dbuf, lay, gn, ev))
-                _dt = time.perf_counter() - _t0
-                xfer_stats["put_s"] += _dt
-                ctr["xfer_stall_s"] += _dt
+                with span("fwt.xfer.put", ctr, "xfer_stall_s") as t:
+                    q2.put(("p", dbuf, lay, gn, ev))
+                xfer_stats["put_s"] += t.seconds
             elif item[0] == "v":
-                _t0 = time.perf_counter()
-                (dv,), ev = tr.stage([item[1]])
-                ctr["xfer_busy_s"] += time.perf_counter() - _t0
+                with span("fwt.xfer.copy", ctr, "xfer_busy_s"):
+                    (dv,), ev = tr.stage([item[1]])
                 ctr["xfer_bytes"] += item[1].nbytes
                 ctr["xfer_puts"] += 1
                 q2.put(("v", dv, ev))
             else:
                 _, bd, n = item
                 keys = sorted(bd)
-                _t0 = time.perf_counter()
-                vals, ev = tr.stage([bd[k] for k in keys])
-                ctr["xfer_busy_s"] += time.perf_counter() - _t0
+                with span("fwt.xfer.copy", ctr, "xfer_busy_s"):
+                    vals, ev = tr.stage([bd[k] for k in keys])
                 ctr["xfer_bytes"] += sum(bd[k].nbytes for k in keys)
                 ctr["xfer_puts"] += 1
                 q2.put(("s", dict(zip(keys, vals)), n, ev))

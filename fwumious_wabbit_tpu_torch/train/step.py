@@ -12,13 +12,13 @@ the old dense weights, as JAX's functional update does."""
 from __future__ import annotations
 
 import threading
-import time
 
 import numpy as np
 import torch
 
 from ..models.model import FwModel, normalize_train, predict_prob
 from ..ops import ffm, sparse_update, tables
+from ..utils.spans import span
 
 # the Batch arrays the forward pass reads
 INPUT_KEYS = ("lr_ids", "lr_vals", "lr_combos", "ffm_ids", "ffm_vals",
@@ -357,15 +357,6 @@ class GraphError(RuntimeError):
     run again step by step."""
 
 
-def _timed(counts: dict, key: str, fn, *args):
-    """``fn(*args)``, its host seconds added to ``counts[key]``."""
-    t0 = time.perf_counter()
-    try:
-        return fn(*args)
-    finally:
-        counts[key] += time.perf_counter() - t0
-
-
 def _launch_counts() -> tuple:
     """The launches a capture on the calling thread counts as its own so
     far (its wrappers', the backward's on autograd's thread included),
@@ -443,13 +434,17 @@ class _GraphedStep:
     the graph launches at each replay, and nothing for the capture, which
     launches nothing. ``counts`` takes ``graph_captures``,
     ``graph_replays``, ``eager_key`` (the calls run step by step) and the
-    host seconds of each, ``capture_s``, ``replay_s`` and ``eager_s``."""
+    host seconds of each, ``capture_s``, ``replay_s`` and ``eager_s``, each
+    also a span (``fwt.graph.capture``, ``.replay``, ``.eager``);
+    ``releases``, the owner's, takes ``graph_releases`` and
+    ``graph_release_s`` (``fwt.graph.release``)."""
 
     def __init__(self, model, what: str, name: str, eager, capturer,
-                 live: list, limit: int, counts: dict, eager_key: str):
+                 live: list, releases: dict, limit: int, counts: dict,
+                 eager_key: str):
         self.model, self.eager, self.capturer = model, eager, capturer
         self.what, self.name = what, name
-        self.live, self.limit = live, limit
+        self.live, self.releases, self.limit = live, releases, limit
         self.counts, self.eager_key = counts, eager_key
         self.seen = False
         self.graph_replay = self.inputs = self.out = None
@@ -459,16 +454,19 @@ class _GraphedStep:
         if not self.seen:
             self.seen = True
             counts[self.eager_key] += 1
-            return _timed(counts, "eager_s", self.eager, inputs)
+            with span("fwt.graph.eager", counts, "eager_s"):
+                return self.eager(inputs)
         if self.graph_replay is None:
             while len(self.live) >= self.limit:
                 self.live.pop(0).release()
-            _timed(counts, "capture_s", self._capture, inputs)
+            with span("fwt.graph.capture", counts, "capture_s"):
+                self._capture(inputs)
             counts["graph_captures"] += 1
         else:
             self.live.remove(self)
         self.live.append(self)
-        out = _timed(counts, "replay_s", self._replay, inputs)
+        with span("fwt.graph.replay", counts, "replay_s"):
+            out = self._replay(inputs)
         counts["graph_replays"] += 1
         return out
 
@@ -479,8 +477,10 @@ class _GraphedStep:
 
     def release(self) -> None:
         """:meth:`drop`, and its pool returned to the card."""
-        self.drop()
-        _free_pools(self.model)
+        with span("fwt.graph.release", self.releases, "graph_release_s"):
+            self.drop()
+            _free_pools(self.model)
+        self.releases["graph_releases"] += 1
 
     def _error(self, what: str, e) -> GraphError:
         return GraphError(f"{self.what}'s CUDA graph ({self.name}) {what}: {e}")
@@ -543,7 +543,8 @@ class BatchStep:
     step's ``graph_captures``, ``graph_replays``, ``eager_batches`` (the
     batches run step by step: each signature's first, and every one
     without graphs) and the host seconds of each (``capture_s``,
-    ``replay_s``, ``eager_s``)."""
+    ``replay_s``, ``eager_s``); ``releases`` its graphs released
+    (``graph_releases``) and their host seconds (``graph_release_s``)."""
 
     def __init__(self, model, what: str, fn, keys: tuple, graph: bool,
                  capturer=None):
@@ -554,13 +555,15 @@ class BatchStep:
         self.counts = {"graph_captures": 0, "graph_replays": 0,
                        "eager_batches": 0, "capture_s": 0.0, "replay_s": 0.0,
                        "eager_s": 0.0}
+        self.releases = {"graph_releases": 0, "graph_release_s": 0.0}
         self.graphs: dict = {}  # signature → _GraphedStep
         self.live: list = []  # the captured ones, least recently replayed first
 
     def __call__(self, batch: dict) -> torch.Tensor:
         if not self.graphed:
             self.counts["eager_batches"] += 1
-            return _timed(self.counts, "eager_s", self.fn, batch)
+            with span("fwt.graph.eager", self.counts, "eager_s"):
+                return self.fn(batch)
         inputs = {k: _as_tensor(batch[k]) for k in self.keys
                   if batch.get(k) is not None}
         sig = signature(inputs)
@@ -571,14 +574,17 @@ class BatchStep:
                 for k, shape, dtype in sig)
             step = self.graphs[sig] = _GraphedStep(
                 self.model, self.what, name, self.fn, self.capturer, self.live,
-                LIVE_STEP_GRAPHS, self.counts, "eager_batches")
+                self.releases, LIVE_STEP_GRAPHS, self.counts, "eager_batches")
         return step(inputs)
 
     def release(self) -> None:
         """Release every captured graph and return their pools to the
         card: the step is done with (the daemon's retired model)."""
         if self.live:
-            for step in self.live:
-                step.drop()
-            self.live.clear()
-            _free_pools(self.model)
+            n = len(self.live)
+            with span("fwt.graph.release", self.releases, "graph_release_s"):
+                for step in self.live:
+                    step.drop()
+                self.live.clear()
+                _free_pools(self.model)
+            self.releases["graph_releases"] += n
