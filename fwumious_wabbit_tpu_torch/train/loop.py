@@ -73,7 +73,8 @@ writer (default 3); ``FWT_COUNTERS_OUT=<path>`` writes the run's examples,
 elapsed seconds and in-run counters as JSON (the packed graphs' and, as
 ``train_*`` and ``predict_*``, the per-batch graphs'; ``graph_releases``
 and ``graph_release_s``, the graphs this run released, packed and
-per-batch, and the seconds that took; ``pass_open_s`` and
+per-batch, and the seconds that took; ``graph_pool_bytes``, what the
+pools of the model's live packed graphs hold at the end; ``pass_open_s`` and
 ``pass_close_s``, the run's edges, :class:`_Run`), with the kernels' launches,
 the files it wrote, the card's peak memory and, under a mesh, the process
 group's set-up seconds and the sharded steps' collective bytes. The
@@ -346,7 +347,8 @@ class _Run:
     so for the steps before it: the in-run proxy of the card's busy time
     (fwumious_wabbit_tpu/train/loop.py:235-342). graph_releases and
     graph_release_s count this run's own graph releases, packed and
-    per-batch."""
+    per-batch; graph_pool_bytes is what the pools of the model's live
+    packed graphs hold at the run's end."""
 
     def __init__(self, args, model):
         from . import packed
@@ -367,6 +369,7 @@ class _Run:
         # the difference
         self.packed_releases = packed.release_counts(model)
         self.packed_releases0 = dict(self.packed_releases)
+        self.packed_pool = lambda: packed.pool_bytes(model)
         self.profile = (_ProfileWindow(args.fwt_profile, model.lr_w.device)
                         if args.fwt_profile else None)
         self.testonly = bool(args.testonly)
@@ -544,7 +547,7 @@ class _Run:
                     self.ctr.update({f"{kind}_{k}": v for k, v in step.counts.items()})
                     for k, v in step.releases.items():
                         releases[k] += v
-        self.ctr.update(releases)
+        self.ctr.update(releases, graph_pool_bytes=self.packed_pool())
         self.close()
         if self.werr:
             raise self.werr[0]

@@ -22,6 +22,7 @@ src/main.rs:213-270).
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -917,9 +918,9 @@ def graph_counts(model) -> dict:
 
 def release_counts(model) -> dict:
     """The model's packed-step graphs released so far (``graph_releases``:
-    a capture beyond the graphs it keeps drops the least recently replayed
-    one and returns its pool to the card) and the host seconds their
-    releases took (``graph_release_s``)."""
+    a capture while the graphs it keeps fill its budget drops the least
+    recently replayed one and returns its pool to the card) and the host
+    seconds their releases took (``graph_release_s``)."""
     counts = getattr(model, "_release_counts", None)
     if counts is None:
         counts = model._release_counts = {"graph_releases": 0,
@@ -927,13 +928,32 @@ def release_counts(model) -> dict:
     return counts
 
 
-# the captured packed-step graphs a model keeps at once: a run's steady
-# (layout, K) and the tail (K' < K) that recurs once per pass of a
-# multi-pass run. A layout that a vocabulary re-signature replaced never
-# comes back, and each graph holds its own memory pool, so the least
-# recently replayed graph beyond these is released; should its (layout, K)
-# come back, it is captured anew.
-_LIVE_GRAPHS = 2
+# the share of the device's memory that the pools of one model's live
+# packed-step graphs may hold together. A multi-pass run's replay passes
+# bring back every (layout, K) of its first pass, the stale layouts of its
+# vocabulary re-signatures included, and each graph's pool holds a small
+# part of the card at the CLI's sizes, so a run keeps every graph it
+# captures; only a capture while the pools hold the budget releases the
+# least recently replayed graph, whose (layout, K), should it come back,
+# is captured anew.
+_PACKED_GRAPH_SHARE = 0.25
+# that share in bytes, from the first device that captures a packed step
+_PACKED_GRAPH_BUDGET = None
+
+
+def packed_graph_budget(device: torch.device) -> int:
+    """The bytes the pools of a model's live packed-step graphs may hold
+    together: :data:`_PACKED_GRAPH_SHARE` of the card's total memory as
+    ``torch.cuda.mem_get_info`` reports it (of the host's for a CPU model,
+    whose graphs only a test's stand-in captures), computed once."""
+    global _PACKED_GRAPH_BUDGET
+    if _PACKED_GRAPH_BUDGET is None:
+        if device.type == "cuda":
+            total = torch.cuda.mem_get_info(device)[1]
+        else:
+            total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+        _PACKED_GRAPH_BUDGET = int(total * _PACKED_GRAPH_SHARE)
+    return _PACKED_GRAPH_BUDGET
 
 
 def _live_graphs(model) -> list:
@@ -945,17 +965,28 @@ def _live_graphs(model) -> list:
     return live
 
 
+def pool_bytes(model) -> int:
+    """The bytes the pools of the model's live packed-step graphs hold."""
+    return sum(step.pool_bytes for step in _live_graphs(model))
+
+
 class _PackedGraphedStep(_GraphedStep):
     """One (layout, K)'s packed step as train/step.py ``_GraphedStep`` (the
     JAX version's jitted ``lax.scan``), called as the step-by-step packed
     step is: its inputs are the ``[K, words]`` buffer and the vocabulary
-    snapshot, its output the ``[K, B]`` predictions."""
+    snapshot, its output the ``[K, B]`` predictions. Its owner is the
+    model, whose graphs are bounded by the bytes their pools hold."""
 
     def __init__(self, model, layout: PackedLayout, K: int, eager, capturer):
         super().__init__(model, "the packed step", f"layout {layout.signature!r}, K={K}",
                          lambda inputs: eager(inputs["buf"], inputs.get("vocab")),
                          capturer, _live_graphs(model), release_counts(model),
-                         _LIVE_GRAPHS, graph_counts(model), "eager_superbatches")
+                         graph_counts(model), "eager_superbatches")
+
+    def full(self) -> bool:
+        """Whether the pools of the model's live packed graphs hold its
+        budget (:func:`packed_graph_budget`) or more."""
+        return pool_bytes(self.model) >= packed_graph_budget(self.model.lr_w.device)
 
     def __call__(self, buf: torch.Tensor, vocab: torch.Tensor | None = None):
         inputs = {"buf": buf} if vocab is None else {"buf": buf, "vocab": vocab}

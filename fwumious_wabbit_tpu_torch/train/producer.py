@@ -23,6 +23,7 @@ its wall-clock counters, so a CPU-stolen window shows up as wall ≫ cpu.
 from __future__ import annotations
 
 import os
+import threading
 import time
 
 import numpy as np
@@ -654,6 +655,23 @@ class SuperbatchProducer:
             cpu["producer"] = time.thread_time() - _cpu0
 
 
+# the transfer stream of each device, taken once in the process: a stream
+# taken per run comes round PyTorch's pool of 32 streams, some 32 runs on,
+# to the one torch.cuda.graph captures on, where the transfer thread's
+# copies break the next capture
+_STREAMS: dict = {}
+_STREAMS_LOCK = threading.Lock()
+
+
+def transfer_stream(device: torch.device):
+    """The process's transfer stream on ``device``, made at its first use."""
+    with _STREAMS_LOCK:
+        stream = _STREAMS.get(device)
+        if stream is None:
+            stream = _STREAMS[device] = torch.cuda.Stream(device)
+        return stream
+
+
 class Transferrer:
     """Host→device copies through a ring of pinned host buffers.
 
@@ -668,6 +686,9 @@ class Transferrer:
     carried. (A non-blocking copy from pageable memory would be silently
     synchronous: every staged byte goes through the pinned ring.)
 
+    The copies run on one stream per device for the process
+    (:func:`transfer_stream`), whatever the number of runs.
+
     On the CPU (``--fwt_platform cpu``) the same stage makes plain copies
     and no event."""
 
@@ -678,7 +699,7 @@ class Transferrer:
         self.cuda = self.device.type == "cuda"
         self.slots = [[None, None] for _ in range(self.SLOTS)]  # pinned, event
         self.next = 0
-        self.stream = torch.cuda.Stream(self.device) if self.cuda else None
+        self.stream = transfer_stream(self.device) if self.cuda else None
 
     def stage(self, arrays: list) -> tuple[list, object]:
         """``(device tensors, event or None)`` for a list of host arrays;

@@ -391,9 +391,12 @@ class CudaGraphCapturer:
     lock = threading.Lock()
 
     def capture(self, fn) -> tuple:
-        """``(replay, out)``: ``fn()`` captured on a side stream, and not
-        run; ``replay()`` launches the whole graph on the current stream,
-        and ``out`` is what ``fn`` returned, written by every replay.
+        """``(replay, out, pool_bytes)``: ``fn()`` captured on a side
+        stream, and not run; ``replay()`` launches the whole graph on the
+        current stream, ``out`` is what ``fn`` returned, written by every
+        replay, and ``pool_bytes`` what the graph's memory pool holds: the
+        growth of the card's reserved memory across the capture (with
+        what another thread's allocations added meanwhile, if any).
 
         The capture is ``thread_local``: while the consumer captures, the
         transfer thread allocates device memory and waits on events, and
@@ -401,9 +404,13 @@ class CudaGraphCapturer:
         mode such a call from any thread is a capture error; here only the
         capturing thread's own are."""
         graph = torch.cuda.CUDAGraph()
-        with self.lock, torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            out = fn()
-        return graph.replay, out
+        with self.lock:
+            # taken inside the capture: entering it empties the cache
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                before = torch.cuda.memory_reserved()
+                out = fn()
+            pool_bytes = max(torch.cuda.memory_reserved() - before, 0)
+        return graph.replay, out, pool_bytes
 
 
 def _free_pools(model) -> None:
@@ -420,9 +427,10 @@ class _GraphedStep:
     call and replayed after: its first call runs step by step (it builds
     the kernels, the LUT table and the geometry caches, none of which a
     capture may do), its second is captured as one graph and replayed, and
-    every later one is replayed. The graphs of one owner (``live``, the
-    least recently replayed first) are at most ``limit``: capturing another
-    releases the least recently replayed one, graph, pool and buffers.
+    every later one is replayed. While the graphs of one owner (``live``,
+    the least recently replayed first) fill its limit (:meth:`full`),
+    capturing another first releases the least recently replayed one,
+    graph, pool and buffers.
 
     The graph owns its inputs — one device tensor per key of the first
     call's ``inputs`` — and its output: each call copies its inputs in on
@@ -440,14 +448,19 @@ class _GraphedStep:
     ``graph_release_s`` (``fwt.graph.release``)."""
 
     def __init__(self, model, what: str, name: str, eager, capturer,
-                 live: list, releases: dict, limit: int, counts: dict,
-                 eager_key: str):
+                 live: list, releases: dict, counts: dict, eager_key: str):
         self.model, self.eager, self.capturer = model, eager, capturer
         self.what, self.name = what, name
-        self.live, self.releases, self.limit = live, releases, limit
+        self.live, self.releases = live, releases
         self.counts, self.eager_key = counts, eager_key
         self.seen = False
         self.graph_replay = self.inputs = self.out = None
+        self.pool_bytes = 0  # what the graph's memory pool holds
+
+    def full(self) -> bool:
+        """Whether the owner's live graphs fill its limit: they are
+        :data:`LIVE_STEP_GRAPHS` or more."""
+        return len(self.live) >= LIVE_STEP_GRAPHS
 
     def __call__(self, inputs: dict):
         counts = self.counts
@@ -457,7 +470,7 @@ class _GraphedStep:
             with span("fwt.graph.eager", counts, "eager_s"):
                 return self.eager(inputs)
         if self.graph_replay is None:
-            while len(self.live) >= self.limit:
+            while self.live and self.full():
                 self.live.pop(0).release()
             with span("fwt.graph.capture", counts, "capture_s"):
                 self._capture(inputs)
@@ -474,6 +487,7 @@ class _GraphedStep:
         """Drop the graph and what it owns; should its signature come back,
         it is captured anew."""
         self.graph_replay = self.inputs = self.out = None
+        self.pool_bytes = 0
 
     def release(self) -> None:
         """:meth:`drop`, and its pool returned to the card."""
@@ -504,7 +518,7 @@ class _GraphedStep:
                        for k, v in inputs.items()}
         before = _launch_counts()
         try:
-            self.graph_replay, self.out = self.capturer.capture(
+            self.graph_replay, self.out, self.pool_bytes = self.capturer.capture(
                 lambda: self.eager(dict(self.inputs)))
         except RuntimeError as e:
             raise self._error("failed to capture", e) from e
@@ -574,7 +588,7 @@ class BatchStep:
                 for k, shape, dtype in sig)
             step = self.graphs[sig] = _GraphedStep(
                 self.model, self.what, name, self.fn, self.capturer, self.live,
-                self.releases, LIVE_STEP_GRAPHS, self.counts, "eager_batches")
+                self.releases, self.counts, "eager_batches")
         return step(inputs)
 
     def release(self) -> None:

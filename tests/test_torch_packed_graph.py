@@ -3,8 +3,10 @@
 on the CPU, through a stand-in for the capturer: the first superbatch of a
 (layout, K) runs step by step, the second is captured and replayed, later
 ones are replayed; a new layout or K captures anew; a tail runs step by
-step; a capture beyond the two graphs a model keeps releases the least
-recently replayed one; a failed capture or replay raises and the
+step; a model keeps every graph it captures while their pools hold less
+than its byte budget, so a replay pass captures nothing anew, and a
+capture at the budget releases the least recently replayed graph; a
+failed capture or replay raises and the
 superbatch is not run again step by step; the kernels' launch counters add each replay's
 captured launches and nothing for the capture; a table rebound after the
 capture raises. Through the CLI: the graph policy trains byte-identically
@@ -42,16 +44,21 @@ CAPTURE_ERROR = "CUDA error: operation not permitted when stream is capturing"
 REPLAY_ERROR = "CUDA error: an illegal memory access was encountered"
 
 
+# the memory pool the stand-in capturer reports for every graph
+POOL_BYTES = 1 << 20
+
+
 class StandInCapturer:
     """Stands in for packed.CudaGraphCapturer on the CPU. ``capture`` runs
     nothing, as a capture launches nothing, but counts ``launches``
     (forward, backward, update) as the kernels' wrappers count what they
-    capture; each replay runs the captured function and writes its result
-    into the output that ``capture`` returned. ``fail`` makes the capture
-    or the replays raise a CUDA error."""
+    capture, and reports a pool of ``pool_bytes``; each replay runs the
+    captured function and writes its result into the output that
+    ``capture`` returned. ``fail`` makes the capture or the replays raise a
+    CUDA error."""
 
-    def __init__(self, launches=(0, 0, 0), fail=None):
-        self.launches, self.fail = launches, fail
+    def __init__(self, launches=(0, 0, 0), fail=None, pool_bytes=POOL_BYTES):
+        self.launches, self.fail, self.pool_bytes = launches, fail, pool_bytes
         self.captures = self.replays = 0
 
     def capture(self, fn):
@@ -69,7 +76,7 @@ class StandInCapturer:
             out.resize_(res.shape).copy_(res)
             self.replays += 1
 
-        return replay, out
+        return replay, out, self.pool_bytes
 
 
 def producer_items(tmp_path, K, B=64, rows=1100, tower=False):
@@ -215,9 +222,8 @@ def first_layout(items, K):
 def test_a_new_layout_or_K_captures_anew(tmp_path):
     """Each (layout, K) has its own graph: another K of the same layout,
     and another layout, each run step by step first and capture on their
-    own second superbatch. The model keeps two graphs: the third capture
-    releases the least recently replayed one, whose (layout, K) captures
-    again when it comes back."""
+    own second superbatch. Under the default budget the model keeps all
+    three graphs: the first (layout, K), when it comes back, replays."""
     mi, items = producer_items(tmp_path, K=3)
     vocab, buf, lay = first_layout(items, 3)
     other = next(i for i in items if i[0] == "p" and i[2].signature != lay.signature)
@@ -230,9 +236,11 @@ def test_a_new_layout_or_K_captures_anew(tmp_path):
         step = packed.make_packed_train_step(model, layout, b.shape[0], capturer=cap)
         step(b, *v)
         counts.append(dict(counts_of(model)))
-    assert [c["graph_captures"] for c in counts] == [0, 0, 1, 2, 2, 3, 4]
+    assert [c["graph_captures"] for c in counts] == [0, 0, 1, 2, 2, 3, 3]
     assert [c["eager_superbatches"] for c in counts] == [1, 2, 2, 2, 3, 3, 3]
     assert [c["graph_replays"] for c in counts] == [0, 0, 1, 2, 2, 3, 4]
+    assert packed.release_counts(model)["graph_releases"] == 0
+    assert len(packed._live_graphs(model)) == 3
 
 
 def in_force(items, signature):
@@ -247,11 +255,13 @@ def in_force(items, signature):
     raise AssertionError("no such layout")
 
 
-def test_graphs_beyond_the_cap_are_released(tmp_path):
-    """A model keeps at most packed._LIVE_GRAPHS captured graphs: a capture
-    beyond them releases the least recently replayed graph with its inputs
-    and output, and a released (layout, K) that comes back is captured
-    anew and trains bit for bit as the step-by-step path does."""
+def test_graphs_beyond_the_cap_are_released(tmp_path, monkeypatch):
+    """Under a budget (packed._PACKED_GRAPH_BUDGET) that two graphs' pools
+    fill, a model keeps at most two captured graphs: a capture beyond them
+    releases the least recently replayed graph with its inputs, output and
+    pool, and a released (layout, K) that comes back is captured anew and
+    trains bit for bit as the step-by-step path does."""
+    monkeypatch.setattr(packed, "_PACKED_GRAPH_BUDGET", 2 * POOL_BYTES)
     mi, items = producer_items(tmp_path, K=3)
     vocab, buf, lay = first_layout(items, 3)
     sig = next(i[2].signature for i in items
@@ -269,15 +279,47 @@ def test_graphs_beyond_the_cap_are_released(tmp_path):
         assert torch.equal(step(b, *v), want)
         live.append([s.name for s in packed._live_graphs(model)])
     assert_bit_identical(tensors(model), tensors(eager_model))
-    assert max(len(names) for names in live) == packed._LIVE_GRAPHS == 2
+    assert max(len(names) for names in live) == 2
     full, tail = (f"layout {lay.signature!r}, K={K}" for K in (3, 2))
     assert live[-1] == [f"layout {o_lay.signature!r}, K={o_buf.shape[0]}", full]
     released = packed.make_packed_train_step(model, lay, 2, capturer=cap)
     assert released.name == tail
     assert released.graph_replay is released.out is released.buf is None
+    assert released.pool_bytes == 0
     assert counts_of(model) == {
         "graph_captures": 4, "graph_replays": 5, "eager_superbatches": 3}
     assert cap.captures == 4 and cap.replays == 5
+    assert packed.release_counts(model)["graph_releases"] == 2
+    assert packed.pool_bytes(model) == 2 * POOL_BYTES
+
+
+def test_a_replay_pass_keeps_its_graphs(tmp_path):
+    """Three (layout, K) taken in turns over three passes under the default
+    budget, as a multi-pass run's replay passes bring them back: the first
+    pass runs each step by step, the second captures each once, the third
+    replays them all, and none is released; every prediction and table
+    bit-identical to the step-by-step path's."""
+    mi, items = producer_items(tmp_path, K=3)
+    vocab, buf, lay = first_layout(items, 3)
+    sig = next(i[2].signature for i in items
+               if i[0] == "p" and i[2].signature != lay.signature)
+    o_vocab, o_buf, o_lay = in_force(items, sig)
+    one_pass = [(lay, buf, vocab), (lay, buf[:2], vocab), (o_lay, o_buf, o_vocab)]
+    eager_model, model, cap = fresh_model(mi), fresh_model(mi), StandInCapturer()
+    captures = []
+    for _ in range(3):
+        for layout, b, v in one_pass:
+            v = (v,) if layout.vocabs else ()
+            K = b.shape[0]
+            want = packed.make_packed_train_step(eager_model, layout, K, graph=False)(b, *v)
+            step = packed.make_packed_train_step(model, layout, K, capturer=cap)
+            assert torch.equal(step(b, *v), want)
+        captures.append(packed.graph_counts(model)["graph_captures"])
+    assert_bit_identical(tensors(model), tensors(eager_model))
+    assert captures == [0, 3, 3] and cap.captures == 3 and cap.replays == 6
+    assert packed.release_counts(model)["graph_releases"] == 0
+    assert len(packed._live_graphs(model)) == 3
+    assert packed.pool_bytes(model) == 3 * POOL_BYTES
 
 
 def test_a_tail_seen_once_runs_eager(tmp_path):

@@ -8,9 +8,11 @@ prediction, table, accumulator and tower tensor bit-identical, for the
 LR+FFM model and the tower, directly and through the fetch ring; and
 through the CLI (the transfer and writer threads running while it
 captures), the -p and -f files byte-identical, with and without
-``--fwt_fetch_stack``; and with more (layout, K)s than a model keeps
-graphs, the released ones captured anew and the card's reserved memory
-bounded. Skips without a card. This file imports no jax:
+``--fwt_fetch_stack``; under a budget that one graph's pool fills, the
+released graphs captured anew and the card's reserved memory bounded,
+and under the default budget every graph kept; and one process making 41
+``run_train_loop`` calls, 40 of them replay passes that capture nothing
+anew. Skips without a card. This file imports no jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_packed_graph_cuda.py
 """
@@ -28,7 +30,7 @@ from fwumious_wabbit_tpu_torch.config.vwmap import VwNamespaceMap
 from fwumious_wabbit_tpu_torch.models.model import FwModel
 from fwumious_wabbit_tpu_torch.ops import ffm, sparse_update
 from fwumious_wabbit_tpu_torch.train import packed
-from fwumious_wabbit_tpu_torch.train.loop import main
+from fwumious_wabbit_tpu_torch.train.loop import main, run_train_loop
 from fwumious_wabbit_tpu_torch.train.producer import SuperbatchProducer
 
 K, B = 4, 256
@@ -197,14 +199,19 @@ def test_cli_graph_equals_eager_byte_for_byte(cuda, tmp_path, monkeypatch, tower
 
 
 @pytest.mark.cuda
-def test_released_graphs_capture_anew_and_free_their_pools(cuda, tmp_path):
-    """One more (layout, K) than a model keeps graphs (packed._LIVE_GRAPHS),
-    taken in turns for six rounds: the first round runs step by step, the
-    second captures each, its last capture releasing the least recently
-    replayed graph, and so every later round captures each anew; the
-    card's reserved memory at the end of each round stays at the second
-    round's, and every prediction and table equals the step-by-step run's
-    bit for bit."""
+@pytest.mark.parametrize("budget", [1, None], ids=["one_graph", "default"])
+def test_released_graphs_capture_anew_and_free_their_pools(cuda, tmp_path, monkeypatch,
+                                                           budget):
+    """Three (layout, K) taken in turns for six rounds: the first round
+    runs step by step, the second captures each. Under a budget of one
+    byte, which every graph's pool fills, each capture releases the graph
+    before it, and so every later round captures each anew; under the
+    default budget the model keeps all three, each pool measured, and
+    later rounds only replay. The card's reserved memory at the end of
+    each round stays at the second round's, and every prediction and
+    table equals the step-by-step run's bit for bit."""
+    if budget is not None:
+        monkeypatch.setattr(packed, "_PACKED_GRAPH_BUDGET", budget)
     mi, items = stream(tmp_path, False, cuda)
     groups, vocab = {}, None
     for item in items:
@@ -213,8 +220,8 @@ def test_released_graphs_capture_anew_and_free_their_pools(cuda, tmp_path):
             continue
         _, buf, lay = item
         groups.setdefault((lay.signature, buf.shape[0]), (buf, lay, vocab))
-    picks = list(groups.values())[:packed._LIVE_GRAPHS + 1]
-    assert len(picks) == packed._LIVE_GRAPHS + 1
+    picks = list(groups.values())[:3]
+    assert len(picks) == 3
 
     def round_of(model, **kw) -> list:
         return [packed.make_packed_train_step(model, lay, buf.shape[0], **kw)(
@@ -229,6 +236,41 @@ def test_released_graphs_capture_anew_and_free_their_pools(cuda, tmp_path):
         torch.cuda.synchronize()
         reserved.append(torch.cuda.memory_reserved(cuda))
     assert_identical(got, want, graphed, eager)
-    assert packed.graph_counts(graphed)["graph_captures"] == 5 * len(picks)
-    assert len(packed._live_graphs(graphed)) == packed._LIVE_GRAPHS
+    live = packed._live_graphs(graphed)
+    assert all(step.pool_bytes > 0 for step in live)
+    if budget is None:
+        assert packed.graph_counts(graphed)["graph_captures"] == len(picks) == len(live)
+        assert packed.release_counts(graphed)["graph_releases"] == 0
+    else:
+        assert packed.graph_counts(graphed)["graph_captures"] == 5 * len(picks)
+        assert packed.release_counts(graphed)["graph_releases"] == 5 * len(picks) - 1
+        assert len(live) == 1
     assert max(reserved[2:]) <= reserved[1], reserved
+
+
+@pytest.mark.cuda
+def test_forty_replay_calls_in_one_process(cuda, tmp_path):
+    """One process, one model, 41 ``run_train_loop`` calls: the text pass
+    recording the pack cache, then 40 replay passes, more than PyTorch's
+    pool of 32 streams (a transfer stream taken per call came round to the
+    graphs' capture stream there). Every call trains every line; from the
+    second replay pass on, no call captures or releases a graph, and the
+    kept graphs' pools hold the same bytes at the end of each."""
+    data = synthetic.ensure_dataset(tmp_path, ROWS)
+    argv = argv_of(False) + ["--data", str(data), "--fwt_batch_size", str(B),
+                             "--fwt_superbatch", str(K), "--fwt_pack_cache", "on"]
+    args = build_parser().parse_args(argv)
+    vw = VwNamespaceMap.from_dataset_dir(str(data))
+    mi = ModelInstance.from_cmdline(args, vw)
+    model = fresh_model(mi, cuda)
+    results, captures = [], []
+    for _ in range(41):
+        results.append(run_train_loop(build_parser().parse_args(argv), mi, vw, model))
+        captures.append(packed.graph_counts(model)["graph_captures"])
+    torch.cuda.synchronize()
+    assert [r["examples"] for r in results] == [ROWS] * 41
+    counters = [r["counters"] for r in results]
+    assert captures[1] >= 1 and captures[2:] == [captures[1]] * 39, captures
+    assert all(c["graph_releases"] == 0 for c in counters[1:])
+    pools = {c["graph_pool_bytes"] for c in counters[2:]}
+    assert len(pools) == 1 and pools.pop() > 0

@@ -228,3 +228,24 @@ def test_transferrer_on_the_cpu(tmp_path):
     assert ctr["xfer_puts"] == 3 and ctr["xfer_bytes"] == (
         buf.nbytes + snap.nbytes + sum(a.nbytes for a in bd.values()))
     assert "transfer" in ctr["cpu_s_by_thread"]
+
+
+def test_transferrers_on_one_device_share_one_stream(monkeypatch):
+    """Every Transferrer on one device copies on one stream, made once in
+    the process (a stream per run came round PyTorch's pool of 32 to the
+    graphs' capture stream); another device has its own. The stream is a
+    stand-in that counts its constructions: there is no card here."""
+    made = []
+
+    class Stream:
+        def __init__(self, device):
+            made.append(device)
+
+    monkeypatch.setattr(pproducer.torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(pproducer, "_STREAMS", {})
+    a, b = pproducer.Transferrer("cuda:0"), pproducer.Transferrer(torch.device("cuda:0"))
+    other = pproducer.Transferrer("cuda:1")
+    assert a.stream is b.stream and isinstance(a.stream, Stream)
+    assert other.stream is not a.stream
+    assert made == [torch.device("cuda:0"), torch.device("cuda:1")]
+    assert pproducer.Transferrer("cpu").stream is None and len(made) == 2

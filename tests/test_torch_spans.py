@@ -5,7 +5,8 @@ tests/test_torch_packed_graph.py: a span always feeds its counter and
 opens a ``record_function`` range only while a profiler records; a
 traced ``run_train_loop`` call exports the consumer's spans, the graph
 spans nested in their dispatch; ``graph_releases`` counts one call's
-releases; the consumer's counted spans fit inside the call;
+releases, none under the default budget, which a replay call fills with
+no capture; the consumer's counted spans fit inside the call;
 ``--fwt_profile`` records the stage threads' spans too."""
 
 import json
@@ -26,11 +27,12 @@ from fwumious_wabbit_tpu_torch.train import packed, producer
 from fwumious_wabbit_tpu_torch.train.loop import main, run_train_loop
 from fwumious_wabbit_tpu_torch.utils.spans import span, spanned
 
-from test_torch_packed_graph import StandInCapturer, with_stand_in
+from test_torch_packed_graph import POOL_BYTES, StandInCapturer, with_stand_in
 from torch_parity import eat_rate_stream
 from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
-# the consumer's spans that every replay call past the graph cap opens
+# the consumer's spans that every replay call opens under a budget of one
+# graph's pool
 CONSUMER_SPANS = ("fwt.pass.open", "fwt.consumer.wait_input", "fwt.dispatch.packed",
                   "fwt.graph.capture", "fwt.graph.replay", "fwt.graph.release",
                   "fwt.consumer.fetch", "fwt.pass.close")
@@ -86,7 +88,7 @@ def replays(tmp_path, monkeypatch):
     ``run_train_loop`` (``-p`` on) over the pack cache of a 700-line
     Eat-Rate file at B=64, K=2, recorded by a first call on the same
     model, with the packed graphs of the stand-in capturer. Each pass
-    meets more (layout, K) than the two graphs a model keeps."""
+    meets more (layout, K) than one."""
     _, argv, _ = eat_rate_stream(tmp_path, 700)
     data = tmp_path / "train_700.vw"
     argv = argv + ["--data", str(data), "--fwt_batch_size", "64",
@@ -110,10 +112,12 @@ def replays(tmp_path, monkeypatch):
     return call
 
 
-def test_a_traced_call_holds_the_consumer_spans(replays, tmp_path):
+def test_a_traced_call_holds_the_consumer_spans(replays, tmp_path, monkeypatch):
     """A replay call under the profiler, started on the calling thread (the
-    consumer): its trace holds the consumer's spans, each capture, replay
-    and release nested in a packed dispatch on the same thread."""
+    consumer), under a budget that one graph's pool fills: its trace holds
+    the consumer's spans, each capture, replay and release nested in a
+    packed dispatch on the same thread."""
+    monkeypatch.setattr(packed, "_PACKED_GRAPH_BUDGET", POOL_BYTES)
     replays()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         replays()
@@ -132,15 +136,34 @@ def test_a_traced_call_holds_the_consumer_spans(replays, tmp_path):
     assert opened["ts"] + opened["dur"] <= first_wait + 1
 
 
-def test_graph_releases_count_one_call(replays):
+@pytest.mark.parametrize("budget", [None, POOL_BYTES], ids=["default", "one_graph"])
+def test_graph_releases_count_one_call(replays, monkeypatch, budget):
     """Of three identical replay calls on one model, the second and the
-    third release as many graphs, and more than none: the counter counts
-    the call's releases while the model's count grows."""
+    third capture and release as many graphs: none under the default
+    budget, whose graphs the first replay call completes, and more than
+    none under a budget that one graph's pool fills. The counter counts
+    the call's releases while the model's count grows, and
+    ``graph_pool_bytes`` what the live graphs' pools hold at the call's
+    end."""
+    if budget is not None:
+        monkeypatch.setattr(packed, "_PACKED_GRAPH_BUDGET", budget)
     before = dict(packed.release_counts(replays.model))
-    got = [replays()[0]["counters"] for _ in range(3)]
+    got, captures = [], []
+    for _ in range(3):
+        got.append(replays()[0]["counters"])
+        captures.append(packed.graph_counts(replays.model)["graph_captures"])
     n = [c["graph_releases"] for c in got]
-    assert n[1] == n[2] > 0, n
-    assert all(c["graph_release_s"] > 0 for c in got)
+    assert n[1] == n[2], n
+    assert captures[2] - captures[1] == captures[1] - captures[0]
+    if budget is None:
+        assert n[1] == 0 and captures[2] == captures[1], (n, captures)
+        assert all(c["graph_release_s"] == 0 for c in got)
+        live = len(packed._live_graphs(replays.model))
+        assert live > 2 and got[2]["graph_pool_bytes"] == live * POOL_BYTES
+    else:
+        assert n[1] > 0 and captures[2] > captures[1], (n, captures)
+        assert all(c["graph_release_s"] > 0 for c in got)
+        assert got[2]["graph_pool_bytes"] == POOL_BYTES
     assert packed.release_counts(replays.model)["graph_releases"] == (
         before["graph_releases"] + sum(n))
 
