@@ -4,15 +4,16 @@ output check, and (traced) the per-layer readings.
 The system under test is ``fwumious_wabbit_tpu_torch``: its model
 (``FwModel``), loaded with the benchmark's own initial weights, and its
 training entry ``train.loop.run_train_loop``. Set-up writes the seeded
-Eat-Rate file and trains the user's first pass from the text with the
-pack cache on, which records the packed superbatch stream beside the file
-(``<file>.fwpack``); the second pass replays that stream. Every later call
+file (in the configuration's data schema, ``Cell.data``) and trains the
+user's first pass from the text with the pack cache on, which records the
+packed superbatch stream beside the file (``<file>.fwpack``); the second pass replays that stream. Every later call
 replays it too: the window runs whole passes, each one call of
 ``run_train_loop`` on the same model, until ``seconds`` have passed; one
 more replay pass follows the window, with the graphs the window left.
 
-The output check (check.py) holds the program to the plain reference
-(reference.py) over the three checked passes, each from the state the
+The output check (check.py) holds the program to the configuration's plain
+reference (``Cell.reference``; reference.py unless the configuration names
+another) over the three checked passes, each from the state the
 program had before it: the text pass from the initial weights, set-up's
 replay pass from a snapshot taken after the text pass, and the pass after
 the window from a snapshot taken after the window. A checked pass writes
@@ -30,7 +31,7 @@ from pathlib import Path
 
 import torch
 
-from . import check, eatrate, features, reference
+from . import check
 from .spec import Cell
 
 
@@ -44,10 +45,11 @@ def program_args(cell: Cell, data: Path, *extra: str):
          "--fwt_pack_cache", "on", *extra])
 
 
-def to_params(st: dict, model: dict) -> dict:
-    """The benchmark's flat state as the program's params dict."""
-    p = {k: st[k].view(-1, reference.LANE) for k in ("lr_w", "lr_acc", "ffm_w", "ffm_acc")}
-    shapes = reference.tower_shapes(model)
+def to_params(st: dict, ref, model: dict) -> dict:
+    """The benchmark's flat state as the program's params dict; ``ref`` is
+    the configuration's reference."""
+    p = {k: st[k].view(-1, ref.LANE) for k in ref.TABLES}
+    shapes = ref.tower_shapes(model)
     if shapes:
         layer = lambda n: {k: st[f"{n}.{k}"] for k in ("w", "b", "w_acc", "b_acc")}
         p["nn"] = [layer(n) for n, _, _ in shapes[:-1]]
@@ -55,12 +57,11 @@ def to_params(st: dict, model: dict) -> dict:
     return p
 
 
-def snapshot(model) -> dict:
+def snapshot(model, ref) -> dict:
     """The program's weights and accumulators, copied to the host, keyed
-    as the reference's state."""
+    as the state of the reference ``ref``."""
     p = model.params()
-    out = {k: p[k].detach().reshape(-1).to("cpu", copy=True)
-           for k in ("lr_w", "lr_acc", "ffm_w", "ffm_acc")}
+    out = {k: p[k].detach().reshape(-1).to("cpu", copy=True) for k in ref.TABLES}
     named = [(f"nn.{i}", l) for i, l in enumerate(p.get("nn", []))]
     if "final" in p:
         named.append(("final", p["final"]))
@@ -79,6 +80,7 @@ class Run:
 
     def __init__(self, cell: Cell, seed: int, device: torch.device, workdir: Path):
         self.cell, self.seed, self.device = cell, seed, device
+        self.ref = cell.reference
         self.workdir = Path(workdir)
         self.data = self.workdir / "train.vw"
         t = cell.traffic
@@ -94,15 +96,9 @@ class Run:
     # -- set-up ------------------------------------------------------------
 
     def write_data(self) -> None:
-        t = self.cell.traffic
-        self.cols = eatrate.draw(self.lines, self.seed, t["feature_variety"],
-                                 t["num_random"])
-        eatrate.write_namespace_map(self.workdir, t["num_random"])
-        renderer = eatrate.Renderer(t["feature_variety"], t["num_random"])
-        with open(self.data, "wb") as f:
-            for lo in range(0, self.lines, eatrate.CHUNK):
-                f.write(renderer.chunk({k: v[lo:lo + eatrate.CHUNK]
-                                        for k, v in self.cols.items()}))
+        data, t = self.cell.data, self.cell.traffic
+        self.cols = data.columns(t, self.seed)
+        data.write_text(t, self.cols, self.data)
 
     def build_model(self) -> None:
         from fwumious_wabbit_tpu_torch import native
@@ -116,8 +112,9 @@ class Run:
         self.mi = ModelInstance.from_cmdline(args, self.vw)
         self.model = FwModel(self.mi, batch_mean_mode=args.fwt_batch_mean or "auto",
                              batch_cap=float(args.fwt_batch_cap or 8.0))
-        st = reference.initial_weights(self.cell.config["model"], self.seed, self.device)
-        self.model.load_params(to_params(st, self.cell.config["model"]))
+        m = self.cell.config["model"]
+        st = self.ref.initial_weights(m, self.seed, self.device)
+        self.model.load_params(to_params(st, self.ref, m))
 
     def train_pass(self, *extra: str) -> dict:
         from fwumious_wabbit_tpu_torch.train.loop import run_train_loop
@@ -129,7 +126,7 @@ class Run:
 
     def snap(self) -> dict:
         t0 = time.perf_counter()
-        s = snapshot(self.model)
+        s = snapshot(self.model, self.ref)
         self.snap_s += time.perf_counter() - t0
         return s
 
@@ -212,33 +209,34 @@ class Run:
 
     # -- the output check ----------------------------------------------------
 
-    def reference_rows(self) -> reference.Rows:
-        t, m = self.cell.traffic, self.cell.config["model"]
-        ids = features.Ids(m, t["feature_variety"], t["num_random"])
-        return reference.Rows(m, ids.lr(self.cols), ids.ffm(self.cols),
-                              self.cols["label"], self.batch, self.device)
+    def reference_rows(self):
+        """The reference's ``Rows`` of the run's columns."""
+        m = self.cell.config["model"]
+        ids = self.cell.data.ids(m, self.cell.traffic)
+        return self.ref.Rows(m, ids.lr(self.cols), ids.ffm(self.cols),
+                             self.cols["label"], self.batch, self.device)
 
-    def check(self, rows: reference.Rows, variant=None) -> dict:
+    def check(self, rows, variant=None) -> dict:
         """The check's numbers, per checked pass (``text_pass``,
         ``replay_pass``, ``last_pass``): ``loss_gap_first`` (the worst of
         the first superbatch's steps), ``loss_gap`` (the worst step),
-        ``grad_gap`` and ``change_gap``. ``variant(model, st, rows) ->
+        ``grad_gap`` and ``change_gap``. ``variant(ref, model, st, rows) ->
         preds``, when given, is put in the program's place (the control and
         the planted faults)."""
-        m = self.cell.config["model"]
-        leaves = reference.weight_leaves(m)
+        m, ref = self.cell.config["model"], self.ref
+        leaves = ref.weight_leaves(m)
         dev, first = self.device, int(self.cell.traffic["superbatch"])
         out = {}
         for tag in [t for t in CHECKED if t in self.after]:
             start = (self.before[tag] if tag in self.before
-                     else reference.initial_weights(m, self.seed, dev))
+                     else ref.initial_weights(m, self.seed, dev))
             prog_after = self.after[tag]
             st = {k: v.to(dev).clone() for k, v in start.items()}
             before = {k: v.clone() for k, v in st.items()}
-            ref_preds = reference.run_pass(m, st, rows).cpu().numpy()
+            ref_preds = ref.run_pass(m, st, rows).cpu().numpy()
             if variant is not None:
                 alt = {k: v.to(dev).clone() for k, v in start.items()}
-                prog_preds = variant(m, alt, rows).cpu().numpy()
+                prog_preds = variant(ref, m, alt, rows).cpu().numpy()
                 prog_after = alt
             elif tag in self.predicted:
                 prog_preds = check.read_predictions(self.preds_path(tag))

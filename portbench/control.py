@@ -9,12 +9,12 @@ benchmark run (set-up's text pass and replay pass, a window of
 ``run_seconds`` and the replay pass after it, each checked pass with
 ``-p``), then the check's numbers for the program, and, unless
 ``--program-only``, for what the check must fail, each put in the
-program's place from the program's own start: the control (the plain
-reference computed in bfloat16, the precision below the configuration's
-float32) and the planted faults (reference.step's ``half``, ``flip`` and
-``unchanged``). The readings are the last line of standard output, as
-JSON; each leaf's norms go to standard error. The benchmark's own runs
-never run this.
+program's place from the program's own start: the control (the cell's
+plain reference computed in bfloat16, the precision below the
+configuration's float32) and the planted faults (its ``run_pass``'s
+``half``, ``flip`` and ``unchanged``). The readings are the last line of
+standard output, as JSON; each leaf's norms go to standard error. The
+benchmark's own runs never run this.
 """
 
 from __future__ import annotations
@@ -26,24 +26,24 @@ import sys
 import torch
 
 from . import cell as cellmod
-from . import reference, run, spec
+from . import run, spec
 
 
-def bf16_in_place(model, st, rows):
-    low = reference.to_dtype(st, torch.bfloat16)
-    preds = reference.run_pass(model, low, rows)
+def bf16_in_place(ref, model, st, rows):
+    low = ref.to_dtype(st, torch.bfloat16)
+    preds = ref.run_pass(model, low, rows)
     for k in st:
         st[k].copy_(low[k].float())
     return preds
 
 
 def fault(name):
-    return lambda model, st, rows: reference.run_pass(model, st, rows, fault=name)
+    return lambda ref, model, st, rows: ref.run_pass(model, st, rows, fault=name)
 
 
-def f64_in_place(model, st, rows):
+def f64_in_place(ref, model, st, rows):
     high = {k: v.double() for k, v in st.items()}
-    preds = reference.run_pass(model, high, rows)
+    preds = ref.run_pass(model, high, rows)
     for k in st:
         st[k].copy_(high[k].float())
     return preds

@@ -12,6 +12,10 @@ chunk with a few numpy operations instead of one Python string per line.
 :func:`draw` gives the integer columns the text is rendered from; the
 plain reference (reference.py) derives its feature ids from them through
 the same strings the text holds (:func:`tokens`).
+
+As the default data schema of a configuration (spec.py), it gives
+:func:`columns`, :func:`write_text` and :func:`ids`, each reading the
+traffic's ``lines``, ``feature_variety`` and ``num_random``.
 """
 
 from __future__ import annotations
@@ -133,3 +137,31 @@ def write_namespace_map(directory: Path, num_random: int = 10) -> None:
     Path(directory, NAMESPACE_MAP).write_text(
         "A,animal\nB,food\n"
         + "".join(f"{ns},somefeature\n" for ns in random_namespaces(num_random)))
+
+
+# -- the data schema (spec.py) ---------------------------------------------
+
+
+def columns(traffic: dict, seed: int) -> dict:
+    """The run's columns: :func:`draw` of the traffic's lines."""
+    return draw(int(traffic["lines"]), seed, traffic["feature_variety"],
+                traffic["num_random"])
+
+
+def write_text(traffic: dict, cols: dict, path: Path) -> None:
+    """``cols`` rendered as VW text at ``path``, the namespace map
+    beside it."""
+    path = Path(path)
+    write_namespace_map(path.parent, traffic["num_random"])
+    renderer = Renderer(traffic["feature_variety"], traffic["num_random"])
+    with open(path, "wb") as f:
+        for lo in range(0, len(cols["label"]), CHUNK):
+            f.write(renderer.chunk({k: v[lo:lo + CHUNK] for k, v in cols.items()}))
+
+
+def ids(model: dict, traffic: dict):
+    """The LR and FFM ids of ``model`` for these columns
+    (features.Ids)."""
+    from .features import Ids
+
+    return Ids(model, traffic["feature_variety"], traffic["num_random"])

@@ -83,9 +83,9 @@ class Ids:
         self.model = model
         self.hashes = namespace_hashes(feature_variety, num_random)
         self.lr_mask = (1 << model["bit_precision"]) - 1
-        k = model["ffm_k"]
-        dim_bits = max(0, (k - 1).bit_length())
-        self.ffm_mask = ((1 << model["ffm_bit_precision"]) - 1) ^ ((1 << dim_bits) - 1)
+        if model["ffm_fields"]:
+            dim_bits = max(0, (model["ffm_k"] - 1).bit_length())
+            self.ffm_mask = ((1 << model["ffm_bit_precision"]) - 1) ^ ((1 << dim_bits) - 1)
 
     def _ns(self, cols: dict, ns: str) -> np.ndarray:
         h = self.hashes[ns]
@@ -113,6 +113,9 @@ class Ids:
         return np.stack(out, axis=1).astype(np.int64)
 
     def ffm(self, cols: dict) -> np.ndarray:
-        """``[n, fields]`` i64: each field's one feature id."""
+        """``[n, fields]`` i64: each field's one feature id (``[n, 0]``
+        where the model has no FFM)."""
+        if not self.model["ffm_fields"]:
+            return np.zeros((len(cols["label"]), 0), np.int64)
         return np.stack([self._ns(cols, field).astype(np.int64) & self.ffm_mask
                          for field in self.model["ffm_fields"]], axis=1)

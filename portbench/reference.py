@@ -43,6 +43,10 @@ import torch
 LANE = 128
 LUT_BITS = 11
 CAP_CODE_EXACT = 15
+# the flat tables of the state, the program's params and the snapshots
+TABLES = ("lr_w", "lr_acc", "ffm_w", "ffm_acc")
+# the Rows attribute of each FFM entry's slab key (the roofline's pieces)
+FFM_PIECES = "ffm_win"
 
 
 def table_rows(logical: int, slab: int) -> int:

@@ -52,9 +52,11 @@ def _distinct_per_batch(keys: torch.Tensor, batch: int) -> torch.Tensor:
     return torch.bincount(uniq >> 40, minlength=steps).double()
 
 
-def least_per_pass(rows, model: dict) -> dict:
+def least_per_pass(rows, model: dict, ref) -> dict:
     """Seconds of least time, summed over the pass's steps, for each
-    kernel and for the whole step; ``rows`` is reference.Rows."""
+    kernel and for the whole step; ``rows`` is the ``Rows`` of ``ref``, the
+    configuration's reference, which names the FFM pieces
+    (``ref.FFM_PIECES``) and the tower (``ref.tower_shapes``)."""
     B = rows.batch
     n = rows.n
     steps = -(-n // B)
@@ -64,7 +66,8 @@ def least_per_pass(rows, model: dict) -> dict:
     F, k = len(model["ffm_fields"]), model["ffm_k"]
     T = F * (F + 1) // 2
     E = b * F  # FFM entries
-    slabs = _distinct_per_batch(rows.ffm_win, B)
+    slabs = (_distinct_per_batch(getattr(rows, ref.FFM_PIECES), B) if ref.FFM_PIECES
+             else torch.zeros_like(b))
     lr_sectors = _distinct_per_batch(rows.lr >> 3, B)  # 8 floats a sector
     slab = F * k * F32
     hb, fl = PEAKS["hbm_bytes_s"], PEAKS["f32_flops"]
@@ -82,12 +85,7 @@ def least_per_pass(rows, model: dict) -> dict:
     out["sparse_update"] = (
         total(K_lr * (4 + F32) + lr_tables, K_lr * 4)
         + total(K_ffm * (4 + slab) + ffm_tables, K_ffm * F * k * 4))
-    tower = 0
-    nn = model.get("nn")
-    if nn:
-        from .reference import tower_shapes
-
-        tower = sum(fi * fo + fo for _, fi, fo in tower_shapes(model))
+    tower = sum(fi * fo + fo for _, fi, fo in ref.tower_shapes(model))
     step_bytes = lr_tables + ffm_tables + tower * 4 * 4 + b * (C + F + 1) * 4
     step_ops = (b * C * 6 + E * F * k * 12 + b * T * 2 * k
                 + b * tower * 6 + tower * 4)

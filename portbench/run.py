@@ -174,7 +174,7 @@ def execute(cell, seed: int, seconds: float, trace: bool, device) -> dict:
         summary["passes"] = 1
         ctx = {"window_s": untraced_s, "passes": len(results) - 1, "counters": ctr,
                "superbatches": sb, "trace": summary,
-               "least": roofline.least_per_pass(rows, cell.config["model"])}
+               "least": roofline.least_per_pass(rows, cell.config["model"], cell.reference)}
         metrics = {}
         for m in cell.per_layer:
             v = spec.metric_reader(m["name"])(ctx)
@@ -208,7 +208,7 @@ def main(argv=None) -> int:
 
     try:
         cell = spec.cell(args.workload)
-    except (KeyError, OSError) as e:
+    except (KeyError, OSError, ValueError) as e:
         print(f"portbench: {e}", file=sys.stderr)
         return 1
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:

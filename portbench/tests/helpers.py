@@ -3,22 +3,19 @@ program on the CPU."""
 
 from __future__ import annotations
 
-import copy
-
 import torch
 
 from portbench import run, spec
 
-# per traffic: (batch, lines): nine batches and a partial one, so a run
-# packs a full superbatch, a short tail and a per-batch step; B=32,768
-# runs at 4,096 here, the CPU's share
-SIZES = {"multipass_b1024": (1024, 9 * 1024 + 100), "multipass_b32k": (4096, 9 * 4096 + 300)}
+# by the traffic's batch: (batch, lines): nine batches and a partial one,
+# so a run packs a full superbatch, a short tail and a per-batch step;
+# B=32,768 runs at 4,096 here, the CPU's share
+SIZES = {1024: (1024, 9 * 1024 + 100), 32768: (4096, 9 * 4096 + 300)}
 
 
 def tiny(workload: str) -> spec.Cell:
-    c = copy.deepcopy(spec.cell(workload))
-    name = workload.split(".", 1)[1]
-    batch, lines = SIZES[name]
+    c = spec.cell(workload)  # its files read anew: a copy of its own
+    batch, lines = SIZES[int(c.traffic["batch"])]
     c.traffic.update(lines=lines, batch=batch,
                      argv=["--fwt_batch_size", str(batch), "--fwt_superbatch",
                            str(c.traffic["superbatch"]), "--fwt_platform", "cpu"])

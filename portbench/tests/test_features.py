@@ -2,6 +2,7 @@
 lines (the port's parser and translator, on the CPU)."""
 
 import numpy as np
+import pytest
 
 from fwumious_wabbit_tpu_torch import hashing
 from fwumious_wabbit_tpu_torch.config.cmdline import build_parser
@@ -20,8 +21,9 @@ def test_murmur3_matches():
                 == np.array([hashing.murmur3_32(s, seed) for s in strs])).all()
 
 
-def test_ids_match_the_program_translation(tmp_path):
-    cfg = spec.cell("lrffm_k8.multipass_b1024").config
+@pytest.mark.parametrize("workload", ["lrffm_k8.multipass_b1024", "eatrate_lr.multipass_b32k"])
+def test_ids_match_the_program_translation(tmp_path, workload):
+    cfg = spec.cell(workload).config
     eatrate.write_dataset(tmp_path / "d.vw", 300, 5)
     cols = eatrate.draw(300, 5)
     vw = VwNamespaceMap.from_dataset_dir(str(tmp_path / "d.vw"))
@@ -32,5 +34,6 @@ def test_ids_match_the_program_translation(tmp_path):
     for i, line in enumerate((tmp_path / "d.vw").read_bytes().splitlines()):
         te = tr.translate(parser.parse_line(line))
         assert te.lr_hashes == list(lr[i]) and te.lr_combos == list(range(lr.shape[1]))
-        assert te.ffm_hashes == list(ffm[i]) and te.ffm_fields == [0, 1]
-        assert set(te.lr_values) == {1.0} and set(te.ffm_values) == {1.0}
+        assert te.ffm_hashes == list(ffm[i])
+        assert te.ffm_fields == list(range(len(cfg["model"]["ffm_fields"])))
+        assert set(te.lr_values) == {1.0} and set(te.ffm_values) <= {1.0}

@@ -3,8 +3,11 @@ top-level module names compared whole (the port's own name begins with
 the JAX package's)."""
 
 import ast
+import json
 import subprocess
 import sys
+
+import pytest
 
 from portbench import run, spec
 
@@ -41,6 +44,26 @@ def test_a_cpu_run_loads_nothing_forbidden():
     assert found == "[]"
     assert "fwumious_wabbit_tpu_torch" in tops
     assert not FORBIDDEN & set(eval(tops))
+
+
+REFERENCES = sorted({json.loads((spec.ROOT / c["file"]).read_text()).get(
+    "reference", spec.DEFAULT_MODULES["reference"]) for c in spec.load_benchmark()["configs"]})
+
+
+@pytest.mark.parametrize("rel", REFERENCES)
+def test_a_reference_imports_nothing_of_the_program(rel):
+    """Each configuration's plain reference, imported alone in a fresh
+    interpreter, loads neither the program nor anything forbidden."""
+    code = ("import sys\n"
+            "from portbench import spec\n"
+            f"spec.module({rel!r})\n"
+            "print(sorted({m.split('.')[0] for m in sys.modules}))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       cwd=spec.ROOT, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    tops = set(eval(r.stdout.strip().splitlines()[-1]))
+    assert "torch" in tops
+    assert not (FORBIDDEN | {"fwumious_wabbit_tpu_torch"}) & tops
 
 
 def test_the_blocker_refuses_whole_names_only():

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from portbench import reference, roofline, spec
+from portbench import reference, reference_lr, roofline, spec
 
 MODEL = spec.cell("lrffm_k8.multipass_b1024").config["model"]
 HB, FL = roofline.PEAKS["hbm_bytes_s"], roofline.PEAKS["f32_flops"]
@@ -25,7 +25,7 @@ def test_one_batch_of_two_rows_by_hand():
     lr = [list(range(14)), [0] + list(range(200, 213))]
     # FFM windows (id >> 4): 1, 2 | 1, 300 → 3 slabs of 64 B
     ffm = [[16, 32], [16, 4800]]
-    got = roofline.least_per_pass(rows(lr, ffm, 1024), MODEL)
+    got = roofline.least_per_pass(rows(lr, ffm, 1024), MODEL, reference)
     E, F, k, T, b = 4, 2, 8, 3, 2
     fwd_bytes = E * 12 + 3 * 64 + b * T * 4
     fwd_ops = E * 2 * F * k + b * T * 2 * k
@@ -48,8 +48,21 @@ def test_batches_are_counted_apart():
     # (id 1: sector 0; id 129: sector 16) and slabs
     lr = [[1] * 14, [1] * 14, [1] * 14, [129] * 14]
     ffm = [[16, 16], [16, 16], [16, 16], [16, 16]]
-    got = roofline.least_per_pass(rows(lr, ffm, 2), MODEL)
+    got = roofline.least_per_pass(rows(lr, ffm, 2), MODEL, reference)
     lr_t = (28 * 8 + 1 * 32 * 4) / HB + (28 * 8 + 2 * 32 * 4) / HB
     ffm_t = 2 * (4 * (4 + 64) + 64 * 4) / HB
     assert got["sparse_update"] == pytest.approx(lr_t + ffm_t)
     assert got["steps"] == 2
+
+
+def test_a_model_without_ffm_counts_its_lr_alone():
+    # the LR reference names no FFM pieces: no FFM work, the LR update and
+    # the step's LR sectors alone (ids 0..13: sectors 0, 1)
+    model = spec.cell("eatrate_lr.multipass_b32k").config["model"]
+    lr = np.asarray([list(range(14))], np.int64)
+    r = reference_lr.Rows(model, lr, np.zeros((1, 0), np.int64), np.ones(1, np.int64),
+                          1024, "cpu")
+    got = roofline.least_per_pass(r, model, reference_lr)
+    assert got["ffm_fwd"] == got["ffm_bwd"] == 0.0
+    assert got["sparse_update"] == pytest.approx((14 * 8 + 2 * 32 * 4) / HB)
+    assert got["step"] == pytest.approx((2 * 32 * 4 + (14 + 1) * 4) / HB)

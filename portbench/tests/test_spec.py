@@ -67,7 +67,40 @@ def test_cells_are_found_by_name(workload):
     assert {"lines", "batch", "superbatch", "argv"} <= set(cell.traffic)
     assert cell.limits and all(v > 0 for v in cell.limits.values())
     assert [m["name"] for m in cell.end_to_end] == ["train_examples_per_s", "setup_s"]
-    assert len(cell.per_layer) == len(B["per_layer"])
+    # every per-layer metric, but the FFM kernels' where the model has no FFM
+    ffm = bool(cell.config["model"]["ffm_fields"])
+    assert [m["name"] for m in cell.per_layer] == [
+        m["name"] for m in B["per_layer"] if ffm or not m["name"].startswith("ffm_")]
+
+
+@pytest.mark.parametrize("workload", ["lrffm_k8.multipass_b1024", "deep_ffm.multipass_b1024",
+                                      "lrffm_k8.multipass_b32k"])
+def test_a_configuration_naming_no_module_takes_the_defaults(workload):
+    from portbench import eatrate, reference
+
+    cell = spec.cell(workload, B)
+    assert "reference" not in cell.config and "data" not in cell.config
+    assert cell.reference is reference and cell.data is eatrate
+
+
+def test_a_configuration_names_its_own_reference():
+    from portbench import eatrate, reference_lr
+
+    cell = spec.cell("eatrate_lr.multipass_b32k", B)
+    assert cell.reference is reference_lr and cell.data is eatrate
+
+
+@pytest.mark.parametrize("key", ["reference", "data"])
+def test_a_missing_module_is_named(tmp_path, key):
+    config = json.loads((spec.HERE / "configs" / "lrffm_k8.json").read_text())
+    config[key] = "nothing_here.py"
+    (tmp_path / "broken.json").write_text(json.dumps(config))
+    bench = json.loads(json.dumps(B))
+    bench["configs"].append({"name": "broken", "file": str(tmp_path / "broken.json")})
+    w = next(w for w in bench["workloads"] if w["name"] == "lrffm_k8.multipass_b1024")
+    w["config"] = "broken"
+    with pytest.raises(FileNotFoundError, match="nothing_here.py"):
+        spec.cell(w["name"], bench)
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in B["per_layer"]])
@@ -85,22 +118,26 @@ def test_config_files_match_the_program_flags(config, tmp_path):
     from fwumious_wabbit_tpu_torch.config.cmdline import build_parser
     from fwumious_wabbit_tpu_torch.config.model_instance import ModelInstance
     from fwumious_wabbit_tpu_torch.config.vwmap import VwNamespaceMap
-    from portbench import eatrate
 
     data = json.loads((spec.ROOT / config["file"]).read_text())
     assert data["name"] == config["name"] and config["reduced"] == []
     m = data["model"]
 
-    eatrate.write_namespace_map(tmp_path)
+    # the namespace map of the configuration's data schema, from a cell of it
+    cell = spec.cell(next(w["name"] for w in B["workloads"] if w["config"] == config["name"]), B)
+    cell.data.write_text(cell.traffic, cell.data.columns({**cell.traffic, "lines": 10}, 1),
+                         tmp_path / "x.vw")
     vw = VwNamespaceMap.from_dataset_dir(str(tmp_path / "x.vw"))
     mi = ModelInstance.from_cmdline(build_parser().parse_args(data["argv"]), vw)
-    assert (mi.bit_precision, mi.ffm_bit_precision, mi.ffm_k) == (
-        m["bit_precision"], m["ffm_bit_precision"], m["ffm_k"])
+    assert mi.bit_precision == m["bit_precision"] and mi.ffm_k == m["ffm_k"]
+    assert mi.num_ffm_fields == len(m["ffm_fields"])
     assert mi.num_combos == len(m["lr_combos"]) + int(m["constant"])
     assert (mi.learning_rate, mi.power_t, mi.init_acc_gradient) == (
         m["learning_rate"], m["power_t"], m["init_acc_gradient"])
-    assert (mi.ffm_learning_rate, mi.ffm_power_t, mi.ffm_init_acc_gradient) == (
-        m["ffm_learning_rate"], m["ffm_power_t"], m["ffm_init_acc_gradient"])
+    if m["ffm_fields"]:
+        assert mi.ffm_bit_precision == m["ffm_bit_precision"]
+        assert (mi.ffm_learning_rate, mi.ffm_power_t, mi.ffm_init_acc_gradient) == (
+            m["ffm_learning_rate"], m["ffm_power_t"], m["ffm_init_acc_gradient"])
     assert mi.optimizer.name.lower() == m["optimizer"]
     if m["nn"]:
         nn = m["nn"]
