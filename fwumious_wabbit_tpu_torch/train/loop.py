@@ -75,7 +75,9 @@ elapsed seconds and in-run counters as JSON (the packed graphs' and, as
 and ``graph_release_s``, the graphs this run released, packed and
 per-batch, and the seconds that took; ``graph_pool_bytes``, what the
 pools of the model's live packed graphs hold at the end; ``pass_open_s`` and
-``pass_close_s``, the run's edges, :class:`_Run`), with the kernels' launches,
+``pass_close_s``, the run's edges; ``ffm_update_bytes`` and
+``ffm_update_examples``, the FFM update rows the steps handed the sparse
+update and their examples, :class:`_Run`), with the kernels' launches,
 the files it wrote, the card's peak memory and, under a mesh, the process
 group's set-up seconds and the sharded steps' collective bytes. The
 device-engine daemon writes its launches, its hot swaps, the card's
@@ -239,14 +241,19 @@ class _ProfileWindow:
     and copies on CUDA. The first dispatch (first use of each kernel and
     allocation) is left out, the next :attr:`STEPS` are traced; a run that
     ends inside the window writes what it traced (the JAX CLI traces its
-    whole run with jax.profiler, fwumious_wabbit_tpu/train/loop.py:860-877)."""
+    whole run with jax.profiler, fwumious_wabbit_tpu/train/loop.py:860-877).
+    The trace's ``fwt_counters`` entry holds the traced dispatches' count
+    and what they added to the loop's :attr:`COUNTERS`."""
 
     SKIP = 1
     STEPS = 8
+    COUNTERS = ("ffm_update_bytes", "ffm_update_examples")
 
-    def __init__(self, directory: str, device: torch.device):
+    def __init__(self, directory: str, device: torch.device, counters: dict):
         self.directory = directory
         self.device = device
+        self.counters = counters
+        self.start = {}
         self.dispatches = 0
         self.prof = None
         self.path = None
@@ -262,6 +269,7 @@ class _ProfileWindow:
                 activities=acts,
                 experimental_config=torch._C._profiler._ExperimentalConfig(
                     profile_all_threads=True))
+            self.start = {k: self.counters[k] for k in self.COUNTERS}
             self.prof.start()
         elif self.dispatches == self.SKIP + self.STEPS:
             self.close()
@@ -277,12 +285,16 @@ class _ProfileWindow:
             return
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        traced = min(self.dispatches - self.SKIP, self.STEPS)
+        window = {k: self.counters[k] - v for k, v in self.start.items()}
+        self.prof.add_metadata_json("fwt_counters",
+                                    json.dumps(dict(window, dispatches=traced)))
         self.prof.stop()
         os.makedirs(self.directory, exist_ok=True)
         self.path = os.path.join(self.directory, f"fwt_trace_{os.getpid()}.json")
         self.prof.export_chrome_trace(self.path)
-        log.info("profiler trace of %d dispatches written to %s",
-                 min(self.dispatches - self.SKIP, self.STEPS), self.path)
+        log.info("profiler trace of %d dispatches written to %s (%s)", traced,
+                 self.path, ", ".join(f"{k} {v}" for k, v in window.items()))
 
 
 def np_counts(ids: np.ndarray, vals: np.ndarray, shift: int) -> np.ndarray:
@@ -352,7 +364,7 @@ class _Run:
 
     def __init__(self, args, model):
         from . import packed
-        from .step import make_predict_step, make_train_step
+        from .step import ffm_update_bytes, make_predict_step, make_train_step
 
         self.ctr = {
             "producer_busy_s": 0.0, "producer_stall_s": 0.0,
@@ -362,7 +374,10 @@ class _Run:
             "writer_stall_s": 0.0, "fetch_force_s": 0.0, "fetch_count": 0,
             "fetch_bytes": 0, "write_s": 0.0,
             "pass_open_s": 0.0, "pass_close_s": 0.0,
+            "ffm_update_bytes": 0, "ffm_update_examples": 0,
         }
+        # the FFM update rows' bytes per trained example and FFM entry
+        self.ffm_entry_bytes = ffm_update_bytes(model, 1, 1)
         self.opening = span("fwt.pass.open", self.ctr, "pass_open_s").open()
         self.closing = span("fwt.pass.close", self.ctr, "pass_close_s")
         # the model's packed graphs count over its life: this run's are
@@ -370,7 +385,8 @@ class _Run:
         self.packed_releases = packed.release_counts(model)
         self.packed_releases0 = dict(self.packed_releases)
         self.packed_pool = lambda: packed.pool_bytes(model)
-        self.profile = (_ProfileWindow(args.fwt_profile, model.lr_w.device)
+        self.profile = (_ProfileWindow(args.fwt_profile, model.lr_w.device,
+                                       self.ctr)
                         if args.fwt_profile else None)
         self.testonly = bool(args.testonly)
         self.batch_size = (1 if args.fwt_exact
@@ -500,7 +516,7 @@ class _Run:
             bd = pmesh.shard_batch(bd, self.mesh, self.both_axes)
         if self.delay == 0:
             with span("fwt.dispatch.batch", self.ctr, "dispatch_s"):
-                preds = self.train_step(bd) if update else self.predict_step(bd)
+                preds = self.train(bd) if update else self.predict_step(bd)
         else:
             # predict with the lagging model, then train what left the
             # queue; the reference's delay path trains every delayed
@@ -515,7 +531,7 @@ class _Run:
                     old_bd, old_n = self.delayed.pop(0)
                     self.delayed_examples -= old_n
                     if self.train_step is not None:
-                        self.train_step(old_bd)
+                        self.train(old_bd)
         self.profile_step()
         if self.mesh is not None:
             # every rank writes the whole stream: gathered here, on the main
@@ -527,6 +543,24 @@ class _Run:
         if self.writer.active:
             self.fetch(preds, [(first_num, n)])
 
+    def count_ffm_update(self, examples: int, width: int) -> None:
+        """Count the FFM update rows of ``examples`` trained examples of
+        ``width`` FFM entries each: ``ffm_update_bytes``, the bytes of the
+        rows the FFM scope hands the sparse update (train/step.py
+        ``ffm_update_bytes``), and ``ffm_update_examples``; nothing without
+        FFM."""
+        if self.ffm_entry_bytes:
+            self.ctr["ffm_update_bytes"] += examples * width * self.ffm_entry_bytes
+            self.ctr["ffm_update_examples"] += examples
+
+    def train(self, bd: dict):
+        """One batch's train step, its FFM update rows counted from the
+        batch's shape."""
+        ids = bd.get("ffm_ids")
+        if ids is not None:
+            self.count_ffm_update(*ids.shape)
+        return self.train_step(bd)
+
     def profile_step(self) -> None:
         if self.profile is not None:
             self.profile.step()
@@ -536,7 +570,7 @@ class _Run:
         and return ``{'examples', 'elapsed', 'counters'}``."""
         if self.train_step is not None:
             for bd, _n in self.delayed:
-                self.train_step(bd)
+                self.train(bd)
         releases = {k: v - self.packed_releases0[k]
                     for k, v in self.packed_releases.items()}
         if self.mesh is None:
@@ -737,6 +771,7 @@ def _native_ingest(args, mi, vw, model, run: _Run) -> None:
                 else:
                     preds = packed_mod.make_packed_train_step(model, lay, kk)(
                         buf, *vargs)
+            run.count_ffm_update(kk * batch_size, packed_mod.ffm_width(lay))
             run.profile_step()
             if to_ring:
                 ring_metas.append((first_num, gn))

@@ -750,6 +750,16 @@ def try_fused_emit(ni, start: int, B: int, W_all: int, mi,
     return PreparedBatch(slim, lay)
 
 
+def ffm_width(layout: PackedLayout) -> int:
+    """The FFM entries of one example in the layout's batches, as
+    :func:`unpack_row` restores ``ffm_ids`` from its bit-packed or plain
+    column (0 where the layout has none)."""
+    for key, _bits, W in layout.bitpacks:
+        if key == "ffm_ids":
+            return W
+    return next((f.shape[-1] for f in layout.fields if f.key == "ffm_ids"), 0)
+
+
 def pack(layout: PackedLayout, bds: list) -> np.ndarray:
     """K batch dicts → [K, words] u32 (one flat memcpy per array)."""
     buf = np.empty((len(bds), layout.words), np.uint32)

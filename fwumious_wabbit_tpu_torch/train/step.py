@@ -300,6 +300,17 @@ def ffm_update_rows(model: FwModel, bd: dict, g_emb: torch.Tensor):
     return rid, grows, pre_scaled
 
 
+def ffm_update_bytes(model: FwModel, examples: int, width: int) -> int:
+    """The bytes of the ``[K, 128]`` f32 rows that :func:`ffm_update_rows`
+    hands the sparse update for ``examples`` examples of ``width`` FFM
+    entries each: one row an entry where a slab fits a row, its
+    ``rows_per_slab`` rows where it spans rows (``tables.expand_grads``);
+    0 without FFM."""
+    if not model.has_ffm:
+        return 0
+    return examples * width * model.ffm_spec.rows_per_slab * tables.LANE * 4
+
+
 def train_step_fn(model: FwModel):
     """``step(batch) -> probabilities [B]``: the forward values before the
     update, as a tensor on the model's device, run from Python. The step

@@ -139,7 +139,8 @@ def test_unported_training_modes_are_refused(tmp_path, extra, mesh):
                          ids=["native", "python"])
 def test_profile_writes_a_trace(tmp_path, path):
     """--fwt_profile DIR: a torch.profiler trace of a window of the run's
-    steps (the first left out) in DIR, in the Chrome trace format; the
+    steps (the first left out) in DIR, in the Chrome trace format, with
+    the FFM update rows' bytes and examples of the traced dispatches; the
     run's predictions as without it."""
     import json
 
@@ -151,6 +152,13 @@ def test_profile_writes_a_trace(tmp_path, path):
     assert main(argv + ["-p", str(tmp_path / "b.out")]) == 0
     (trace,) = prof.iterdir()
     assert trace.name.startswith("fwt_trace_") and trace.suffix == ".json"
+    window = json.loads(trace.read_text())["fwt_counters"]
+    # 120 lines at B=16: seven full batches and a partial one of 8; with
+    # K=2 the native path packs three superbatches of 2 and sends one full
+    # and the partial batch alone, so dispatches 2..8 or 2..5 are traced
+    assert window["dispatches"] == (7 if "--fwt_no_native" in path else 4)
+    assert window["ffm_update_examples"] > 0
+    assert window["ffm_update_bytes"] % (512 * window["ffm_update_examples"]) == 0
     events = json.loads(trace.read_text())["traceEvents"]
     names = {e.get("name", "") for e in events}
     assert any(n.startswith("aten::") for n in names)
